@@ -1,0 +1,24 @@
+"""PyTorch/CUDA port of dualpixelface_tpu for NVIDIA Hopper (H100).
+
+The JAX package `dualpixelface_tpu` is the reference; this package mirrors
+its module tree (`ops/`, `ops/kernels/`, `models/`) and result contract. The
+TPU Pallas kernels on the serving path are hand-written CUDA kernels here
+(`csrc/`), built with nvcc at first use. Entry points run on the card unless
+the caller asks for the CPU, where every kernel wrapper takes its plain
+PyTorch version.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. A CUDA device without a card
+    raises: nothing moves to the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
