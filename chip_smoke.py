@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the port never calls) with CUDA events;
   5. serve 3 request batches of 4 dual-pixel pairs at 768x576 in bf16
      through `Predictor` (seeded weights, non-zero offset heads): shapes,
-     finiteness, launch counts (K1 +2, K5 +2, K3 +1 per forward), pairs/s;
+     finiteness, launch counts (K1 +2, K5 +2, K3 +1 per forward), and a
+     smoke reading of pairs/s (the serving rate proper, over many batches,
+     is `python3 -m dualpixelface_tpu_torch.profile_serving`'s);
   6. the same weights at 192x192, batch 1, f32: the card's forward (kernels)
      against the CPU forward (plain versions).
 The line before the last is the `kernels` JSON; the last line is
@@ -197,6 +199,7 @@ def check_results(torch, res, b, h, w):
 
 def serve_full_width(torch, config, sd, card):
     from dualpixelface_tpu_torch.ops.kernels import kernel_wrappers, reset_launch_counts
+    from dualpixelface_tpu_torch.profile_serving import serve_timed
     from dualpixelface_tpu_torch.serve import Predictor, bench_batch
 
     pred = Predictor(config, state_dict=sd, device="cuda", dtype=torch.bfloat16)
@@ -204,24 +207,17 @@ def serve_full_width(torch, config, sd, card):
     check_results(torch, pred(batches[0]), B, H, W)  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    lat = []
-    for batch in batches:
-        t1 = time.perf_counter()
-        res = pred(batch)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t1)
-        check_results(torch, res, B, H, W)
-    dt = time.perf_counter() - t0
+    smoke = serve_timed(pred, batches, check=lambda res: check_results(torch, res, B, H, W))
     k1, k3, k5 = (fn.launches for fn in kernel_wrappers())
     launches = {"K1": k1, "K3": k3, "K5": k5}
     want = {"K1": 2 * len(batches), "K3": len(batches), "K5": 2 * len(batches)}
     print(f"serving launches {launches} (expected {want})", flush=True)
     if launches != want:
         fail(f"launch counts {launches} != {want}: the serving path did not run through every kernel")
-    pairs_s = B * len(batches) / dt
-    print(json.dumps({"serving": {"pairs_per_s": pairs_s, "batch": B, "hw": [H, W], "dtype": "bfloat16",
-                                  "batch_latency_s": lat, "card": card}}), flush=True)
+    # 3 batches: a smoke reading only; the serving rate is profile_serving's,
+    # over many more batches through the same serve_timed
+    print(json.dumps({"serving_smoke": {**smoke, "batch": B, "hw": [H, W], "dtype": "bfloat16",
+                                        "card": card}}), flush=True)
     return launches
 
 

@@ -2,7 +2,7 @@
 // im2col-GEMM tile that K1 (deform conv) and K5 (dense 3x3x3 conv) share.
 //
 // The GEMM tile is a plain SIMT design: a block of 256 threads (16 x 16)
-// owns BM = 128 output voxels x BN = 16*TN output channels; each thread
+// owns BM = 128 output voxels x all Co <= 16*TN output channels; each thread
 // keeps TM x TN f32 accumulators for voxels ty + 16*i and channels
 // tx + 16*j. The A tile (BK reduction rows x BM voxels) is built by the
 // calling kernel in shared memory, already rounded to the input dtype; the
@@ -34,15 +34,15 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-// Bs[k][n] = W[krow0 + k][n0 + n] for k < nk and n0 + n < Co, else 0.
+// Bs[k][n] = W[krow0 + k][n] for k < nk and n < Co, else 0.
 template <typename T, int TN>
 __device__ __forceinline__ void load_b_tile(float (*Bs)[16 * TN], const T* __restrict__ wmat,
-                                            int krow0, int nk, int Co, int n0, int tid) {
+                                            int krow0, int nk, int Co, int tid) {
   constexpr int BN = 16 * TN;
   for (int e = tid; e < BK * BN; e += NTHREADS) {
     const int k = e / BN, n = e - k * BN;
     float v = 0.0f;
-    if (k < nk && n0 + n < Co) v = to_f32(wmat[(size_t)(krow0 + k) * Co + n0 + n]);
+    if (k < nk && n < Co) v = to_f32(wmat[(size_t)(krow0 + k) * Co + n]);
     Bs[k][n] = v;
   }
 }
@@ -68,15 +68,15 @@ __device__ __forceinline__ void mma_tile(float (*As)[BM + 1], float (*Bs)[16 * T
 // two T values is taken in f32 and rounded once, as torch adds in T).
 template <typename T, int TN>
 __device__ __forceinline__ void store_tile(T* __restrict__ out, const T* __restrict__ bias,
-                                           float (&acc)[TM][TN], int m0, int M, int n0,
-                                           int Co, int tx, int ty) {
+                                           float (&acc)[TM][TN], int m0, int M, int Co, int tx,
+                                           int ty) {
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty + 16 * i;
     if (m >= M) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
+      const int n = tx + 16 * j;
       if (n >= Co) continue;
       float v = round_to<T>(acc[i][j]);
       if (bias != nullptr) v = v + to_f32(bias[n]);

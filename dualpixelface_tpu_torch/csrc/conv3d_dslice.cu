@@ -23,16 +23,19 @@ namespace {
 
 using namespace dpf;
 
-template <typename T, int TN>
+constexpr int CO = 81;  // the offset heads' 3 x 27 channels, the only caller
+constexpr int TN = 6;   // 16 * TN = 96 >= CO; the store masks the rest
+
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ wmat, const T* __restrict__ bias,
-                 T* __restrict__ out, int B, int D, int H, int W, int C, int Co) {
+                 T* __restrict__ out, int B, int D, int H, int W, int C) {
   __shared__ float As[BK][BM + 1];
   __shared__ float Bs[BK][16 * TN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int M = B * D * H * W;
   const int K = 27 * C;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * 16 * TN;
+  const int m0 = blockIdx.x * BM;
 
   // The voxels this thread loads (and accumulates): m0 + ty + 16*r.
   int vm[TM], vd[TM], vh[TM], vw[TM];
@@ -65,44 +68,37 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ wmat, const T* _
         v = to_f32(x[(size_t)(vm[r] + shift) * C + c]);
       As[tx][ty + 16 * r] = v;
     }
-    load_b_tile<T, TN>(Bs, wmat, k0, min(BK, K - k0), Co, n0, tid);
+    load_b_tile<T, TN>(Bs, wmat, k0, min(BK, K - k0), CO, tid);
     __syncthreads();
     mma_tile<TN>(As, Bs, acc, tx, ty);
     __syncthreads();
   }
-  store_tile<T, TN>(out, bias, acc, m0, M, n0, Co, tx, ty);
+  store_tile<T, TN>(out, bias, acc, m0, M, CO, tx, ty);
 }
 
 template <typename T>
-void launch(int tn, dim3 grid, cudaStream_t s, const void* x, const void* w, const void* bias,
-            void* out, int B, int D, int H, int W, int C, int Co) {
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  const T* bp = static_cast<const T*>(bias);
-  T* op = static_cast<T*>(out);
-  if (tn == 4)
-    conv3d_k3_kernel<T, 4><<<grid, NTHREADS, 0, s>>>(xp, wp, bp, op, B, D, H, W, C, Co);
-  else if (tn == 6)
-    conv3d_k3_kernel<T, 6><<<grid, NTHREADS, 0, s>>>(xp, wp, bp, op, B, D, H, W, C, Co);
-  else
-    conv3d_k3_kernel<T, 8><<<grid, NTHREADS, 0, s>>>(xp, wp, bp, op, B, D, H, W, C, Co);
+void launch(dim3 grid, cudaStream_t s, const void* x, const void* w, const void* bias, void* out,
+            int B, int D, int H, int W, int C) {
+  conv3d_k3_kernel<T><<<grid, NTHREADS, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                                static_cast<const T*>(bias), static_cast<T*>(out),
+                                                B, D, H, W, C);
 }
 
 }  // namespace
 
-// x [B, D, H, W, C], wmat [27*C, Co] ((kd, kh, kw, c) rows), bias [Co] or
-// null, out [B, D, H, W, Co]; all contiguous, one dtype (is_bf16 selects
-// bf16, else f32). Returns cudaGetLastError() after the launch.
+// x [B, D, H, W, C], wmat [27*C, CO] ((kd, kh, kw, c) rows), bias [CO] or
+// null, out [B, D, H, W, CO]; all contiguous, one dtype (is_bf16 selects
+// bf16, else f32). Returns cudaErrorInvalidValue for Co != CO, else
+// cudaGetLastError() after the launch.
 extern "C" int dpf_conv3d_k3(const void* x, const void* wmat, const void* bias, void* out, int B,
                              int D, int H, int W, int C, int Co, int is_bf16, void* stream) {
-  const int tn = Co <= 64 ? 4 : (Co <= 96 ? 6 : 8);
-  const int bn = 16 * tn;
+  if (Co != CO) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * D * H * W;
-  dim3 grid((unsigned)((M + dpf::BM - 1) / dpf::BM), (unsigned)((Co + bn - 1) / bn));
+  dim3 grid((unsigned)((M + dpf::BM - 1) / dpf::BM));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    launch<__nv_bfloat16>(tn, grid, s, x, wmat, bias, out, B, D, H, W, C, Co);
+    launch<__nv_bfloat16>(grid, s, x, wmat, bias, out, B, D, H, W, C);
   else
-    launch<float>(tn, grid, s, x, wmat, bias, out, B, D, H, W, C, Co);
+    launch<float>(grid, s, x, wmat, bias, out, B, D, H, W, C);
   return (int)cudaGetLastError();
 }

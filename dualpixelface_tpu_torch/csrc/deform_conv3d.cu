@@ -33,19 +33,21 @@ using namespace dpf;
 
 constexpr float EPS = 1.0f / 1024.0f;
 constexpr float AP = 3.0f;
+constexpr int CO = 64;  // the ANM deform convs' output channels, the only caller
+constexpr int TN = 4;   // 16 * TN = CO: one block covers every output channel
 
-template <typename T, int TN>
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 deform_conv3d_kernel(const T* __restrict__ x, const T* __restrict__ offset,
                      const T* __restrict__ wmat, const T* __restrict__ bias, T* __restrict__ out,
-                     int B, int D, int H, int W, int C, int Co, int aperture) {
+                     int B, int D, int H, int W, int C, int aperture) {
   __shared__ float As[BK][BM + 1];
   __shared__ float Bs[BK][16 * TN];
   __shared__ int cidx[8][BM];   // corner voxel index, -1 when outside
   __shared__ float cwt[8][BM];  // corner weight
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int M = B * D * H * W;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * 16 * TN;
+  const int m0 = blockIdx.x * BM;
 
   float acc[TM][TN];
 #pragma unroll
@@ -110,47 +112,39 @@ deform_conv3d_kernel(const T* __restrict__ x, const T* __restrict__ offset,
         }
         As[tx][ml] = round_to<T>(s);
       }
-      load_b_tile<T, TN>(Bs, wmat, tap * C + c0, min(BK, C - c0), Co, n0, tid);
+      load_b_tile<T, TN>(Bs, wmat, tap * C + c0, min(BK, C - c0), CO, tid);
       __syncthreads();
       mma_tile<TN>(As, Bs, acc, tx, ty);
       __syncthreads();
     }
   }
-  store_tile<T, TN>(out, bias, acc, m0, M, n0, Co, tx, ty);
+  store_tile<T, TN>(out, bias, acc, m0, M, CO, tx, ty);
 }
 
 template <typename T>
-void launch(int tn, dim3 grid, cudaStream_t s, const void* x, const void* offset, const void* w,
-            const void* bias, void* out, int B, int D, int H, int W, int C, int Co, int aperture) {
-  const T* xp = static_cast<const T*>(x);
-  const T* opp = static_cast<const T*>(offset);
-  const T* wp = static_cast<const T*>(w);
-  const T* bp = static_cast<const T*>(bias);
-  T* outp = static_cast<T*>(out);
-  if (tn == 4)
-    deform_conv3d_kernel<T, 4><<<grid, NTHREADS, 0, s>>>(xp, opp, wp, bp, outp, B, D, H, W, C, Co, aperture);
-  else if (tn == 6)
-    deform_conv3d_kernel<T, 6><<<grid, NTHREADS, 0, s>>>(xp, opp, wp, bp, outp, B, D, H, W, C, Co, aperture);
-  else
-    deform_conv3d_kernel<T, 8><<<grid, NTHREADS, 0, s>>>(xp, opp, wp, bp, outp, B, D, H, W, C, Co, aperture);
+void launch(dim3 grid, cudaStream_t s, const void* x, const void* offset, const void* w,
+            const void* bias, void* out, int B, int D, int H, int W, int C, int aperture) {
+  deform_conv3d_kernel<T><<<grid, NTHREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(w),
+      static_cast<const T*>(bias), static_cast<T*>(out), B, D, H, W, C, aperture);
 }
 
 }  // namespace
 
 // x [B, D, H, W, C], offset [B, D, H, W, 81] (tap-major (dD, dH, dW)),
-// wmat [27*C, Co], bias [Co] or null, out [B, D, H, W, Co]; contiguous, one
-// dtype (is_bf16 selects bf16, else f32). Returns cudaGetLastError().
+// wmat [27*C, CO], bias [CO] or null, out [B, D, H, W, CO]; contiguous, one
+// dtype (is_bf16 selects bf16, else f32). Returns cudaErrorInvalidValue for
+// Co != CO, else cudaGetLastError() after the launch.
 extern "C" int dpf_deform_conv3d(const void* x, const void* offset, const void* wmat,
                                  const void* bias, void* out, int B, int D, int H, int W, int C,
                                  int Co, int aperture, int is_bf16, void* stream) {
-  const int tn = Co <= 64 ? 4 : (Co <= 96 ? 6 : 8);
-  const int bn = 16 * tn;
+  if (Co != CO) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * D * H * W;
-  dim3 grid((unsigned)((M + dpf::BM - 1) / dpf::BM), (unsigned)((Co + bn - 1) / bn));
+  dim3 grid((unsigned)((M + dpf::BM - 1) / dpf::BM));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    launch<__nv_bfloat16>(tn, grid, s, x, offset, wmat, bias, out, B, D, H, W, C, Co, aperture);
+    launch<__nv_bfloat16>(grid, s, x, offset, wmat, bias, out, B, D, H, W, C, aperture);
   else
-    launch<float>(tn, grid, s, x, offset, wmat, bias, out, B, D, H, W, C, Co, aperture);
+    launch<float>(grid, s, x, offset, wmat, bias, out, B, D, H, W, C, aperture);
   return (int)cudaGetLastError();
 }

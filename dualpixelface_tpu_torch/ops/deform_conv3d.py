@@ -1,13 +1,13 @@
 """3-D deformable convolution (counterpart of
 `dualpixelface_tpu/ops/deform_conv3d.py`; the reference's "D3D" module).
 
-`deform_conv3d` is the op, channels-last, for the 3x3x3 / stride 1 / pad 1
-geometry the ANM uses: trilinear sampling at base + offset, zero outside,
-then a contraction with the weight, plus bias. With `aperture` the H/W
-positions are clamped to the +-AP window (the JAX package's
-`deform_impl='pallas'` semantics); without, sampling is unbounded (the
-reference's, `packed8`). It runs through kernel K1 on the card and its plain
-version on the CPU (`ops/kernels/deform_fused.py`).
+The op itself is `ops/kernels/deform_fused.deform_conv3d_fused`,
+channels-last, for the 3x3x3 / stride 1 / pad 1 geometry the ANM uses:
+trilinear sampling at base + offset, zero outside, then a contraction with
+the weight, plus bias. With `aperture` the H/W positions are clamped to the
++-AP window (the JAX package's `deform_impl='pallas'` semantics); without,
+sampling is unbounded (the reference's, `packed8`). It runs through kernel
+K1 on the card and its plain version on the CPU.
 
 `DeformConvPack3D` predicts its own offsets with a zero-initialised 3x3x3
 conv (kernel K5, `ops/kernels/conv3d_dslice.py`) and returns
@@ -23,13 +23,6 @@ from torch import nn
 
 from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice
 from dualpixelface_tpu_torch.ops.kernels.deform_fused import AP, EPS, KTAPS, deform_conv3d_fused
-
-
-def deform_conv3d(x, offset, weight, bias=None, aperture=False):
-    """x [B, D, H, W, Cin], offset [B, D, H, W, 81] (tap k = (kd*3+kh)*3+kw,
-    channels k*3 + (dD, dH, dW)), weight [3, 3, 3, Cin, Cout], bias [Cout]
-    -> [B, D, H, W, Cout]."""
-    return deform_conv3d_fused(x, offset, weight, bias, aperture=aperture)
 
 
 def clamp_offsets_to_window(offset: torch.Tensor) -> torch.Tensor:
@@ -88,5 +81,5 @@ class DeformConvPack3D(nn.Module):
             offset = clamp_offsets_to_window(offset)
         aperture = self.impl == "pallas" and x.shape[1] <= 4
         weight = self.weight.permute(2, 3, 4, 1, 0).contiguous().to(dt)
-        out = deform_conv3d(x, offset, weight, self.bias.to(dt), aperture=aperture)
+        out = deform_conv3d_fused(x, offset, weight, self.bias.to(dt), aperture=aperture)
         return out, offset

@@ -2,11 +2,13 @@
 with a plain C interface -> ctypes).
 
 Each `csrc/<name>.cu` is compiled on its own for `sm_90a` into
-`build/torch_kernels/lib<name>-<hash>.so` at the repository root, where the
-hash covers the source and the shared header, so an edited source rebuilds
-and an unchanged one loads from the last build. `build()` starts one nvcc per
-missing library, all at once, and waits for them; `load()` builds what it
-needs on first use. Nothing is compiled or loaded at import time.
+`BUILD_DIR/lib<name>-<hash>.so`, where the hash covers the source and the
+shared header, so an edited source rebuilds and an unchanged one loads from
+the last build. BUILD_DIR is `build/torch_kernels/` of the checkout when the
+package runs from one (a `pyproject.toml` beside the package), and
+`~/.cache/dualpixelface_tpu_torch/torch_kernels/` for an installed copy.
+`build()` starts one nvcc per missing library, all at once, and waits for
+them; `load()` builds what it needs on first use. Nothing is compiled or loaded at import time.
 """
 from __future__ import annotations
 
@@ -20,8 +22,13 @@ from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+_PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = _PACKAGE / "csrc"
+BUILD_DIR = (
+    _PACKAGE.parent / "build" / "torch_kernels"
+    if (_PACKAGE.parent / "pyproject.toml").is_file()
+    else Path.home() / ".cache" / "dualpixelface_tpu_torch" / "torch_kernels"
+)
 KERNELS = ("conv3d_dslice", "deform_conv3d", "fused_softargmin")
 _HEADERS = ("common.cuh",)
 _NVCC_FLAGS = (

@@ -9,8 +9,9 @@ meets that is in the source note there. It serves f32 and bf16 alike (the
 TPU kernel ran only in bf16 for lack of VMEM).
 
 `conv3d_dslice` takes the plain PyTorch version for tensors on the CPU and
-the kernel for CUDA tensors; anything else raises. `conv3d_dslice.launches`
-counts kernel launches.
+the kernel for CUDA tensors; anything else raises, as does a CUDA call
+with other than CO output channels (the one width the kernel is built for).
+`conv3d_dslice.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from dualpixelface_tpu_torch.ops.kernels import _build
+
+CO = 81  # the kernel's output channels: the deform offset heads' 3 x 27, its only caller
 
 
 def conv3d_dslice_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -58,11 +61,13 @@ def conv3d_dslice(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | No
         return conv3d_dslice_plain(x, weight, bias)
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_dslice: no kernel for device {x.device}")
+    co = weight.shape[-1]
+    if co != CO:
+        raise ValueError(f"conv3d_dslice: the kernel takes Co = {CO} output channels, not {co}")
     _build.check_cuda_tensors("conv3d_dslice", x.device, x=x, weight=weight, bias=bias)
     if weight.dtype != x.dtype or (bias is not None and (bias.dtype != x.dtype or bias.shape != weight.shape[-1:])):
         raise TypeError("conv3d_dslice: weight and bias must match x's dtype and Co")
     b, d, h, w, c = x.shape
-    co = weight.shape[-1]
     if b * d * h * w * max(c, co) >= 2**31:
         raise ValueError("conv3d_dslice: tensor too large for the kernel's 32-bit indexing")
     fn = _lib()

@@ -13,7 +13,9 @@ both semantics through `aperture`:
   * aperture=False: unbounded, the reference's sampling (`packed8`).
 
 `deform_conv3d_fused` takes the plain PyTorch version for tensors on the
-CPU and the kernel for CUDA tensors; anything else raises.
+CPU and the kernel for CUDA tensors; anything else raises, as does a CUDA
+call with other than CO output channels (the one width the kernel is built
+for).
 `deform_conv3d_fused.launches` counts kernel launches.
 """
 from __future__ import annotations
@@ -27,6 +29,7 @@ from dualpixelface_tpu_torch.ops.kernels import _build
 AP = 3               # aperture: +-AP voxels around the output voxel (H, W)
 EPS = 1.0 / 1024.0
 KTAPS = 27
+CO = 64              # the kernel's output channels: the ANM deform convs', its only caller
 
 
 def clamp_positions(pos: torch.Tensor, out_coord: torch.Tensor) -> torch.Tensor:
@@ -106,13 +109,15 @@ def deform_conv3d_fused(x, offset, weight, bias=None, aperture=True):
         return deform_conv3d_plain(x, offset, weight, bias, aperture)
     if x.device.type != "cuda":
         raise ValueError(f"deform_conv3d_fused: no kernel for device {x.device}")
+    co = weight.shape[-1]
+    if co != CO:
+        raise ValueError(f"deform_conv3d_fused: the kernel takes Co = {CO} output channels, not {co}")
     _build.check_cuda_tensors("deform_conv3d_fused", x.device, x=x, offset=offset, weight=weight, bias=bias)
     if offset.dtype != x.dtype or weight.dtype != x.dtype or (
         bias is not None and (bias.dtype != x.dtype or bias.shape != weight.shape[-1:])
     ):
         raise TypeError("deform_conv3d_fused: offset, weight and bias must match x's dtype and Co")
     b, d, h, w, c = x.shape
-    co = weight.shape[-1]
     if b * d * h * w * max(c, co, 3 * KTAPS) >= 2**31:
         raise ValueError("deform_conv3d_fused: tensor too large for the kernel's 32-bit indexing")
     fn = _lib()

@@ -1,10 +1,11 @@
-"""Where the serving forward's time goes on the card.
+"""The serving rate of the port on the card, and where its time goes.
 
-    python3 -m dualpixelface_tpu_torch.profile_serving [--batch 4 --height 768 --width 576]
+    python3 -m dualpixelface_tpu_torch.profile_serving [--iters 50] [--top 25]
 
-Runs the stereodpnet_plus serving forward (bf16, seeded weights with
-non-zero offset heads) after a warm-up and prints, as JSON lines:
-  * the wall time per forward and pairs/s over --iters forwards;
+Runs the stereodpnet_plus serving forward at the serving cell's shape
+(batch B = 4 at H x W = 768 x 576, bf16, seeded weights with non-zero
+offset heads) after a warm-up and prints, as JSON lines:
+  * the serving rate (`serve_timed` over --iters request batches);
   * each stage's device time (CUDA events around the model's top-level
     modules; the regression is the span between aggregation and the ANM);
   * the device's busy time and idle share, and the top kernels by device
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import time
 
@@ -23,6 +25,7 @@ import torch
 from dualpixelface_tpu_torch.config import load_config
 from dualpixelface_tpu_torch.serve import Predictor, bench_batch, seeded_state_dict
 
+B, H, W = 4, 768, 576
 STAGES = ("feature_extraction", "cost_volume", "aggregation", "normal_estimator")
 
 
@@ -31,6 +34,25 @@ def _card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def serve_timed(pred: Predictor, batches: list, check=None) -> dict:
+    """Answer `batches` one after another, each request complete (the card
+    synchronised) before the next is taken, as a server answers them, each
+    timed on the host clock. `check(result)` is called on each result
+    outside the timed spans. Returns the pairs served over the summed
+    latencies, and the latencies' median, min and max in seconds."""
+    lat = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        res = pred(batch)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        if check is not None:
+            check(res)
+    pairs = sum(len(b["left"]) for b in batches)
+    return {"pairs_per_s": pairs / sum(lat), "batches": len(batches),
+            "latency_s": {"median": statistics.median(lat), "min": min(lat), "max": max(lat)}}
 
 
 def stage_times(pred: Predictor, batch: dict) -> dict:
@@ -65,10 +87,7 @@ def stage_times(pred: Predictor, batch: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--height", type=int, default=768)
-    ap.add_argument("--width", type=int, default=576)
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -76,18 +95,12 @@ def main() -> int:
 
     config = load_config("stereodpnet_plus")
     pred = Predictor(config, seeded_state_dict(config), device="cuda", dtype=torch.bfloat16)
-    batch = bench_batch(args.batch, args.height, args.width)
+    batch = bench_batch(B, H, W)
     pred(batch)
     torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
-    for _ in range(args.iters):
-        pred(batch)
-    torch.cuda.synchronize()
-    per_fwd = (time.perf_counter() - t0) / args.iters
-    card = _card()
-    print(json.dumps({"forward_s": per_fwd, "pairs_per_s": args.batch / per_fwd, "card": card,
-                      "batch": args.batch, "hw": [args.height, args.width]}), flush=True)
+    rate = serve_timed(pred, [batch] * args.iters)
+    print(json.dumps({"serving": rate, "card": _card(), "batch": B, "hw": [H, W]}), flush=True)
     print(json.dumps({"stage_ms": stage_times(pred, batch)}), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

@@ -21,12 +21,12 @@ from dualpixelface_tpu_torch.weights import load_state_dict
 
 
 class Predictor:
-    def __init__(self, config, state_dict=None, device="cuda", dtype=torch.bfloat16, seed: int = 0):
+    def __init__(self, config, state_dict=None, device="cuda", dtype=torch.bfloat16):
         """`state_dict`: reference-named weights (numpy or tensors, e.g.
         from `weights.state_dict_from_jax`); None keeps the seeded init."""
         self.device = resolve_device(device)
         self.dtype = dtype
-        model = build_model(config, device="cpu", seed=seed)
+        model = build_model(config, device="cpu")
         if state_dict is not None:
             load_state_dict(model, state_dict)
         self.model = model.to(device=self.device, dtype=dtype).eval()

@@ -133,14 +133,16 @@ class _TensorOnCuda(torch.Tensor):
 
 
 def _wrapper_calls(make):
+    # the output widths the kernels are built for: K1 64, K5 81
     x = make(torch.zeros(1, 2, 4, 4, 3))
     off = make(torch.zeros(1, 2, 4, 4, 81))
-    w3 = make(torch.zeros(3, 3, 3, 3, 5))
+    w64 = make(torch.zeros(3, 3, 3, 3, 64))
+    w81 = make(torch.zeros(3, 3, 3, 3, 81))
     cost = make(torch.zeros(1, 8, 4, 4))
     return [
-        lambda: deform_conv3d_fused(x, off, w3, None, aperture=True),
+        lambda: deform_conv3d_fused(x, off, w64, None, aperture=True),
         lambda: fused_softargmin(cost, regression_disparities(-4, 12, 8, 4), factor=4),
-        lambda: conv3d_dslice(x, w3, None),
+        lambda: conv3d_dslice(x, w81, None),
     ]
 
 
@@ -158,4 +160,24 @@ def test_wrappers_raise_instead_of_falling_back(make):
     for call in _wrapper_calls(make):
         with pytest.raises((RuntimeError, ValueError)):
             call()
+    assert [fn.launches for fn in kernel_wrappers()] == before
+
+
+@pytest.mark.parametrize("kernel", ["deform_conv3d_fused", "conv3d_dslice"])
+def test_wrappers_refuse_other_output_widths(kernel):
+    """K1 and K5 are built for their one caller's output width (64, 81): a
+    CUDA call with another width raises before anything is launched or
+    counted, while the CPU path takes any width."""
+    x = torch.zeros(1, 2, 4, 4, 3)
+    off = torch.zeros(1, 2, 4, 4, 81)
+    w = torch.zeros(3, 3, 3, 3, 5)
+    call = {
+        "deform_conv3d_fused": lambda x_, o_, w_: deform_conv3d_fused(x_, o_, w_, None, aperture=True),
+        "conv3d_dslice": lambda x_, o_, w_: conv3d_dslice(x_, w_, None),
+    }[kernel]
+    assert call(x, off, w).shape == (1, 2, 4, 4, 5)
+    before = [fn.launches for fn in kernel_wrappers()]
+    on_cuda = [torch.Tensor._make_subclass(_TensorOnCuda, t) for t in (x, off, w)]
+    with pytest.raises(ValueError, match="output channels"):
+        call(*on_cuda)
     assert [fn.launches for fn in kernel_wrappers()] == before
