@@ -1,10 +1,10 @@
-"""Model configuration for the PyTorch port (merge only).
+"""Configuration of the PyTorch port (merge only).
 
 Counterpart of `dualpixelface_tpu/config/manager.py`: the model layer
-(`models/<model_name>/config.json`, a copy carried by this package)
-and the dataset keys the models read are merged into one attribute-access
-tree. The port runs no trainer yet, so there is no run config, workspace or
-augmentation layer.
+(`models/<model_name>/config.json`, a copy carried by this package), the
+run keys the train step reads and the dataset keys the models and losses
+read are merged into one attribute-access tree. The port has no trainer
+loop yet, so there is no workspace or augmentation layer.
 """
 from __future__ import annotations
 
@@ -13,9 +13,14 @@ from pathlib import Path
 
 PACKAGE_ROOT = Path(__file__).resolve().parent
 
-# The only dataset keys a model reads (models/base.py select_ref_target in
-# the JAX package); the values of the SyntheticDP dataset config.
-DATASET_DEFAULTS = {"flip_lr": False}
+# The dataset keys the models and losses read (select_ref_target,
+# prepare_disparity_gt); the values of the JAX package's SyntheticDP dataset
+# config (dualpixelface_tpu/data/SyntheticDP/config.json).
+DATASET_DEFAULTS = {"flip_lr": False, "dp_conversion": "given"}
+
+# The run keys the train step reads; the values of the JAX package's
+# configs/train_synthetic_stereodpnet_plus.json.
+RUN_DEFAULTS = {"optim": "adam", "init_lr": 1e-4, "scheduler": "steplr", "precision": 32, "batch_size": 8}
 
 
 class Config:
@@ -33,10 +38,11 @@ def load_config(
     model_name: str = "stereodpnet_plus",
     model_overrides: dict | None = None,
     dataset_overrides: dict | None = None,
+    run_overrides: dict | None = None,
 ) -> Config:
-    """Merge the packaged model config (`models/<model_name>/config.json`)
-    and the dataset keys into one tree: `cfg.model_name`, `cfg.model.<key>`,
-    `cfg.dataset.<key>`."""
+    """Merge the packaged model config (`models/<model_name>/config.json`),
+    the run keys and the dataset keys into one tree: `cfg.model_name`,
+    `cfg.<run key>`, `cfg.model.<key>`, `cfg.dataset.<key>`."""
     path = PACKAGE_ROOT / "models" / model_name / "config.json"
     if not path.is_file():
         raise FileNotFoundError(f"no model config {path}")
@@ -45,4 +51,6 @@ def load_config(
     model.update(model_overrides or {})
     dataset = dict(DATASET_DEFAULTS)
     dataset.update(dataset_overrides or {})
-    return Config({"model_name": model_name, "model": model, "dataset": dataset})
+    run = dict(RUN_DEFAULTS)
+    run.update(run_overrides or {})
+    return Config({**run, "model_name": model_name, "model": model, "dataset": dataset})

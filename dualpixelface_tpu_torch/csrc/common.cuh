@@ -1,5 +1,5 @@
-// Shared pieces of the port's CUDA kernels: dtype conversions and the
-// im2col-GEMM tile that K1 (deform conv) and K5 (dense 3x3x3 conv) share.
+// Shared pieces of the port's CUDA kernels: dtype conversions, the f32 ->
+// bf16 cast of the backward kernels' accumulators, and the im2col-GEMM tile that K1 (deform conv) and K5 (dense 3x3x3 conv) share.
 //
 // The GEMM tile is a plain SIMT design: a block of 256 threads (16 x 16)
 // owns BM = 128 output voxels x all Co <= 16*TN output channels; each thread
@@ -32,6 +32,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // Round an f32 value through the storage type T (identity for f32).
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
+}
+
+// dst[i] = bf16(src[i]), round to nearest even: the one rounding of a
+// gradient the backward kernels accumulate in an f32 buffer.
+__global__ void cast_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+                                 long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) dst[i] = __float2bfloat16_rn(src[i]);
+}
+
+// Launch cast_bf16_kernel over n elements on s; returns the launch error.
+inline int cast_bf16(const float* src, void* dst, long long n, cudaStream_t s) {
+  cast_bf16_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(src, static_cast<__nv_bfloat16*>(dst), n);
+  return (int)cudaGetLastError();
 }
 
 // Bs[k][n] = W[krow0 + k][n] for k < nk and n < Co, else 0.

@@ -78,6 +78,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
 def build_model(option, device="cuda", dtype=torch.float32, seed: int = 0) -> nn.Module:
     """Construct, seed-initialise and place the model for `option` in eval
-    mode. Raises when CUDA is requested without a card."""
+    mode (`.train()` switches it to the train forward: three regression
+    heads, batch statistics). Raises when CUDA is requested without a card."""
     dev = resolve_device(device)
     return init_weights(model_selector(option), seed).to(device=dev, dtype=dtype).eval()

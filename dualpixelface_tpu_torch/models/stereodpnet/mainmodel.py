@@ -6,9 +6,11 @@ aggregation -> x4 trilinear upsample + soft-argmin over 4*level bins
 (fused in kernel K3 when `fused_regression`) -> ANM normal branch.
 
 Inputs: batch["left"], batch["right"] [B, H, W, 3], batch["K"] [B, 3, 3],
-batch["abvalue"] [B, 2]. Outputs (the JAX package's contract):
-pred_depth [B, 1, H, W]; prob_depth [B, 1, 4*level, H, W] or None under the
-fused regression; pred_normal [B, 1, H, W, 3]; ref_feature [B, H/4, W/4].
+batch["abvalue"] [B, 2]. Outputs (the JAX package's contract), with n = 1
+head in eval mode and n = 3 in train mode (`.train()`; the aggregation's
+three classifier heads, the ANM on the first): pred_depth [B, n, H, W];
+prob_depth [B, n, 4*level, H, W] or None under the fused regression;
+pred_normal [B, 1, H, W, 3]; ref_feature [B, H/4, W/4].
 """
 from __future__ import annotations
 
@@ -50,19 +52,23 @@ class STEREODPNET(nn.Module):
         both_fea = self.feature_extraction(both)  # [2B, C, H/4, W/4]
         ref_fea, tar_fea = both_fea[:b], both_fea[b:]
         cost = self.cost_volume(ref_fea, tar_fea)  # [B, 2C, D, H/4, W/4]
-        logits, cost_feat = self.aggregation(cost)
+        cost_logits, cost_feats = self.aggregation(cost)
 
-        if self.fused:
-            disp, prob = fused_softargmin(logits, self.disparities, factor=4), None
-        else:
-            disp, prob = soft_argmin(logits, self.disparities)
+        disps, probs = [], []
+        for logits in cost_logits:
+            if self.fused:
+                disps.append(fused_softargmin(logits, self.disparities, factor=4))
+            else:
+                disp, prob = soft_argmin(logits, self.disparities)
+                disps.append(disp)
+                probs.append(prob)
 
         normal = None
         if self.normal_estimator is not None:
-            normal, _, _ = self.normal_estimator(cost_feat, disp, batch)
+            normal, _, _ = self.normal_estimator(cost_feats[0], disps[0], batch)
         return {
-            "pred_depth": disp[:, None],
-            "prob_depth": None if prob is None else prob[:, None],
+            "pred_depth": torch.stack(disps, dim=1),
+            "prob_depth": torch.stack(probs, dim=1) if probs else None,
             "pred_normal": None if normal is None else normal[:, None],
             "ref_feature": torch.amax(ref_fea, dim=1),
         }

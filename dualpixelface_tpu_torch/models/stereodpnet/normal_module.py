@@ -18,12 +18,14 @@ import torch
 from torch import nn
 
 from dualpixelface_tpu_torch.ops import geometry
+from dualpixelface_tpu_torch.ops.blocks import BatchNorm3d, LeakyReLU
 from dualpixelface_tpu_torch.ops.cost_volume import costrange as make_costrange
 from dualpixelface_tpu_torch.ops.deform_conv3d import DeformConvPack3D
 from dualpixelface_tpu_torch.ops.resize import downsample2d_nearest, resize_linear
 
 
 @functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)  # cached: usable in autograd after serving
 def _device_planes(values: tuple, device) -> torch.Tensor:
     """The plane values as f32 on the device, copied once (a per-call host
     copy would drain the stream). Callers only read them."""
@@ -113,12 +115,12 @@ class ANM(nn.Module):
         oclamp = bool(opt.get("deform_offset_clamp", False))
         self.deform_conv1 = DeformConvPack3D(c + 3, 2 * c, impl, oclamp)
         self.deform_conv2 = DeformConvPack3D(2 * c, 2 * c, impl, oclamp)
-        self.act1 = nn.Sequential(nn.BatchNorm3d(2 * c, eps=1e-5, momentum=0.1), nn.ReLU())
-        self.act2 = nn.Sequential(nn.BatchNorm3d(2 * c, eps=1e-5, momentum=0.1), nn.ReLU())
+        self.act1 = nn.Sequential(BatchNorm3d(2 * c), nn.ReLU())
+        self.act2 = nn.Sequential(BatchNorm3d(2 * c), nn.ReLU())
         plan = [(3 * c, 1), (3 * c, 2), (2 * c, 4), (2 * c, 8), (c, 1), (3, 1)]
         chans = [2 * c] + [ch for ch, _ in plan]
         self.n_convs = nn.ModuleList([
-            nn.Sequential(nn.Conv2d(chans[i], ch, 3, padding=dil, dilation=dil, bias=False), nn.LeakyReLU(0.1))
+            nn.Sequential(nn.Conv2d(chans[i], ch, 3, padding=dil, dilation=dil, bias=False), LeakyReLU(0.1))
             for i, (ch, dil) in enumerate(plan)
         ])
 

@@ -40,10 +40,14 @@ class PSMNetHourglass(nn.Module):
 class PSMNetHGAggregation(nn.Module):
     """Pre-filters + 3 hourglasses + 3 cascaded classifier heads.
 
-    Input [B, 2C, D, H, W]. Returns (the eval head's logits, the
-    pre-classifier feature volume [B, C, D, H, W]); the logits are
-    [B, 4D, 4H, 4W] (x4 align-corners trilinear) or, with
-    `upsample=False`, the coarse [B, D, H, W] for the fused soft-argmin."""
+    Input [B, 2C, D, H, W]. Returns (logits, feature volumes), one entry per
+    head: in eval mode the last head only, ([cost3], [out3]); in train mode
+    all three, ([cost3, cost2, cost1], [out3, out2, out1]), as the JAX
+    package returns them. The logits are [B, 4D, 4H, 4W] (x4 align-corners
+    trilinear) or, with `upsample=False`, the coarse [B, D, H, W] for the
+    fused soft-argmin; the feature volumes are the pre-classifier
+    [B, C, D, H, W].
+    """
 
     def __init__(self, c: int, upsample: bool = True):
         super().__init__()
@@ -73,8 +77,13 @@ class PSMNetHGAggregation(nn.Module):
         cost1 = self.classif1(out1)
         cost2 = self.classif2(out2) + cost1
         cost3 = self.classif3(out3) + cost2
-        logits = cost3[:, 0]  # [B, D, H, W]
-        if self.upsample:
-            d, h, w = logits.shape[1:]
-            logits = resize_linear(logits, (4 * d, 4 * h, 4 * w), (1, 2, 3))
-        return logits, out3
+        def up(cc):
+            logits = cc[:, 0]  # [B, D, H, W]
+            if self.upsample:
+                d, h, w = logits.shape[1:]
+                logits = resize_linear(logits, (4 * d, 4 * h, 4 * w), (1, 2, 3))
+            return logits
+
+        if self.training:
+            return [up(cost3), up(cost2), up(cost1)], [out3, out2, out1]
+        return [up(cost3)], [out3]

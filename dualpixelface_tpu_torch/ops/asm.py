@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dualpixelface_tpu_torch.ops.blocks import InstanceNorm
+from dualpixelface_tpu_torch.ops.blocks import BatchNorm2d, InstanceNorm
 
 
 def shift_h_static(x: torch.Tensor, k: int, axis: int = 1) -> torch.Tensor:
@@ -71,6 +71,7 @@ def phase_shift_matrix(h: int, deltas: Sequence[float]) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)  # cached: usable in autograd after serving
 def _phase_operator(h: int, deltas: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """The operator on the device, built once per shape: the JAX package
     folds it at trace time; rebuilt per call it cost the host ~0.25 s at
@@ -139,7 +140,7 @@ class MaskingAttention(nn.Module):
         self.normalize = InstanceNorm(features)
         self.mask_convs = nn.Sequential(
             nn.Conv3d(features, features, (1, 3, 3), padding=(0, 1, 1), bias=False),
-            nn.BatchNorm2d(features, eps=1e-5, momentum=0.1),
+            BatchNorm2d(features),
             nn.ReLU(),
             nn.Sequential(nn.Conv3d(features, features, 1, bias=False), self.normalize),
         )

@@ -5,12 +5,53 @@ Only the plain math is ported. The JAX package's `_DPack*`, `_PackedTConv3D`,
 the TPU's matrix unit; here every convolution is the plain channels-first
 cuDNN one. Module and attribute names follow the reference torch
 `state_dict` (`convbn` = Sequential(conv, bn), ...), so checkpoints exported
-by the JAX package load strictly.
+by the JAX package load strictly. Every BatchNorm is `BatchNorm2d` or
+`BatchNorm3d` below, which train with Flax's semantics.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+class _FlaxTrainBatchNorm:
+    """Train mode as Flax's `nn.BatchNorm(momentum=0.9)`: statistics in f32
+    over every axis but the channels, the variance biased and taken as
+    E[x^2] - E[x]^2 clamped at 0; y = (x - mean) * (rsqrt(var + eps) * w) + b
+    in f32, returned in x's dtype; running mean and variance updated in f32
+    with the BIASED variance at momentum 0.1 (Flax's 0.9 decay). Each call
+    updates them, so a module called twice in one forward (the ASM mask
+    head) updates twice, as the Flax module does. torch's own BatchNorm
+    updates with the unbiased variance. Eval mode is torch's (running
+    statistics), unchanged. State-dict names are torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        red = (0,) + tuple(range(2, x.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        xf = x.float()
+        mean = xf.mean(dim=red)
+        var = torch.clamp_min(xf.square().mean(dim=red) - mean.square(), 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach().to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach().to(self.running_var.dtype), alpha=m)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.float().reshape(shape)
+        return y.to(x.dtype)
+
+
+class BatchNorm2d(_FlaxTrainBatchNorm, nn.BatchNorm2d):
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+
+class BatchNorm3d(_FlaxTrainBatchNorm, nn.BatchNorm3d):
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.1)
 
 
 def torch_pad(kernel_size: int, dilation: int = 1) -> int:
@@ -26,7 +67,7 @@ class ConvBN(nn.Sequential):
         p = pad if pad is not None else torch_pad(kernel_size, dilation)
         super().__init__(
             nn.Conv2d(in_ch, features, kernel_size, strides, p, dilation, bias=use_bias),
-            nn.BatchNorm2d(features, eps=1e-5, momentum=0.1),
+            BatchNorm2d(features),
         )
 
 
@@ -38,7 +79,7 @@ class ConvBN3D(nn.Sequential):
         p = pad if pad is not None else (kernel_size - 1) // 2
         super().__init__(
             nn.Conv3d(in_ch, features, kernel_size, strides, p, bias=False),
-            nn.BatchNorm3d(features, eps=1e-5, momentum=0.1),
+            BatchNorm3d(features),
         )
 
 
@@ -50,13 +91,34 @@ class TConvBN3D(nn.Sequential):
         super().__init__(
             nn.ConvTranspose3d(in_ch, features, 3, stride=2, padding=1,
                                output_padding=1, bias=False),
-            nn.BatchNorm3d(features, eps=1e-5, momentum=0.1),
+            BatchNorm3d(features),
         )
 
 
-def PReLU(init: float = 0.05) -> nn.PReLU:
-    """Single-parameter PReLU (torch PReLU(init=w)); x >= 0 passes through."""
-    return nn.PReLU(num_parameters=1, init=init)
+class PReLU(nn.Module):
+    """Single-parameter PReLU, `where(x >= 0, x, a * x)` as the JAX package
+    computes it: at x = 0 exactly the input's gradient is 1, where torch's
+    `nn.PReLU` gives a. Exact zeros are common (a conv without bias over a
+    ReLU-zeroed patch). The parameter is `weight` of shape [1], as torch's."""
+
+    def __init__(self, init: float = 0.05):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), float(init)))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
+class LeakyReLU(nn.Module):
+    """`where(x >= 0, x, slope * x)`, Flax's `nn.leaky_relu`: gradient 1 at
+    x = 0 exactly, where torch's `nn.LeakyReLU` gives the slope."""
+
+    def __init__(self, slope: float):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, x * self.slope)
 
 
 class DepthwiseSeparableConv(nn.Module):
@@ -66,7 +128,7 @@ class DepthwiseSeparableConv(nn.Module):
         super().__init__()
         self.depthwise = nn.Conv2d(in_ch, in_ch, kernel_size, 1, padding, groups=in_ch, bias=False)
         self.pointwise = nn.Conv2d(in_ch, features, 1, bias=False)
-        self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(features)
         self.prelu = PReLU(reluw)
 
     def forward(self, x):

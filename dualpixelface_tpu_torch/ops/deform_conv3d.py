@@ -29,16 +29,18 @@ def clamp_offsets_to_window(offset: torch.Tensor) -> torch.Tensor:
     """Clamp predicted offsets so every H/W sampling position lies inside
     the +-AP window: per tap, dH in [-AP - (kh-1), AP + 1 - EPS - (kh-1)],
     likewise dW with kw; dD unbounded. The forward value is
-    offset + (clipped - offset), as the JAX package's straight-through
-    form computes it."""
+    offset + (clipped - offset) and the gradient is straight-through (the
+    identity), as in the JAX package: a clipped offset keeps receiving the
+    window-interior signal."""
     if offset.shape[-1] != 3 * KTAPS:
         raise ValueError(f"offset channels {offset.shape[-1]} != {3 * KTAPS}")
     lo, hi = _window_bounds(offset.device, offset.dtype)
     clipped = torch.minimum(torch.maximum(offset, lo), hi)
-    return offset + (clipped - offset)
+    return offset + (clipped - offset).detach()
 
 
 @functools.lru_cache(maxsize=8)
+@torch.inference_mode(False)  # cached: usable in autograd after serving
 def _window_bounds(device, dtype):
     """Per-channel (lo, hi) offset bounds of `clamp_offsets_to_window`, on
     the device once (a per-call host copy would drain the stream). Callers

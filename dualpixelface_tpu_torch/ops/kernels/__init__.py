@@ -1,19 +1,26 @@
 """Hand-written CUDA kernels for Hopper, one per TPU Pallas kernel on the
-serving path. Each module holds the wrapper (kernel for CUDA tensors, plain
-PyTorch version for CPU tensors), the plain version and a launch counter;
-the CUDA sources are in `dualpixelface_tpu_torch/csrc/`."""
+serving and train paths. Each module holds the wrappers (kernel for CUDA
+tensors, plain PyTorch version for CPU tensors), the plain versions and the
+launch counters; the CUDA sources are in `dualpixelface_tpu_torch/csrc/`."""
 from dualpixelface_tpu_torch.ops.kernels import conv3d_dslice, deform_fused, fused_softargmin
 
 
-def kernel_wrappers():
-    """The three wrappers, each carrying its `launches` count."""
-    return (
-        deform_fused.deform_conv3d_fused,
-        fused_softargmin.fused_softargmin,
-        conv3d_dslice.conv3d_dslice,
-    )
+def kernel_wrappers() -> dict:
+    """The wrapper of each kernel by its id (K1-K5), each carrying its
+    `launches` count."""
+    return {
+        "K1": deform_fused.deform_conv3d_fused,
+        "K2": deform_fused.deform_conv3d_bwd,
+        "K3": fused_softargmin.fused_softargmin,
+        "K4": fused_softargmin.fused_softargmin_bwd,
+        "K5": conv3d_dslice.conv3d_dslice,
+    }
+
+
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in kernel_wrappers():
+    for fn in kernel_wrappers().values():
         fn.launches = 0

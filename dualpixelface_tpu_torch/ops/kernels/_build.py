@@ -29,7 +29,7 @@ BUILD_DIR = (
     if (_PACKAGE.parent / "pyproject.toml").is_file()
     else Path.home() / ".cache" / "dualpixelface_tpu_torch" / "torch_kernels"
 )
-KERNELS = ("conv3d_dslice", "deform_conv3d", "fused_softargmin")
+KERNELS = ("conv3d_dslice", "deform_conv3d", "deform_conv3d_bwd", "fused_softargmin", "fused_softargmin_bwd")
 _HEADERS = ("common.cuh",)
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -105,11 +105,28 @@ def check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {rc}")
 
 
+def entry(name: str, symbol: str, argtypes: list):
+    """The C entry point `symbol` of kernel library `name` (built first if
+    missing), with its argument types set; it returns a cudaError code."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_device(name: str, device) -> None:
+    """A wrapper runs on the CPU (the plain version) or CUDA (the kernel)."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {device}")
+
+
 def check_cuda_tensors(name: str, device, **tensors) -> None:
-    """CUDA is available, and every named tensor lies on `device`, is
-    contiguous, and is f32 or bf16."""
+    """CUDA is available, and every named tensor (None skipped) lies on
+    `device`, is contiguous, and has the dtype of the first, f32 or bf16."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"{name}: CUDA tensors given but CUDA is not available")
+    first = None
     for key, t in tensors.items():
         if t is None:
             continue
@@ -119,3 +136,6 @@ def check_cuda_tensors(name: str, device, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{name}: {key} has dtype {t.dtype}; the kernel takes float32 or bfloat16")
+        first = first or (key, t.dtype)
+        if t.dtype != first[1]:
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}, {first[0]} {first[1]}; the kernel takes one dtype")

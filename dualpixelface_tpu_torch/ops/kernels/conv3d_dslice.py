@@ -12,6 +12,10 @@ TPU kernel ran only in bf16 for lack of VMEM).
 the kernel for CUDA tensors; anything else raises, as does a CUDA call
 with other than CO output channels (the one width the kernel is built for).
 `conv3d_dslice.launches` counts kernel launches.
+
+The gradient is not a kernel, as in the JAX package, whose custom VJP
+differentiates the XLA reference (`conv3d_dslice.py:217-227`): it is the
+library's 3-D convolution backward (`conv3d_dslice_bwd`) on both devices.
 """
 from __future__ import annotations
 
@@ -42,41 +46,61 @@ def conv3d_dslice_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     return out.reshape(b, d, h, w, co)
 
 
-def _lib():
-    lib = _build.load("conv3d_dslice")
-    fn = lib.dpf_conv3d_k3
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def conv3d_dslice_bwd(x, weight, bias, g):
+    """(gx, gw, gb) of the 3x3x3 pad-1 conv for the cotangent g
+    [B, D, H, W, Co]: the library's conv3d input and weight gradients in the
+    channels-first layout, f32 accumulation, each in its input's dtype (gb
+    None without a bias)."""
+    x_cf = x.permute(0, 4, 1, 2, 3)
+    g_cf = g.permute(0, 4, 1, 2, 3)
+    w_cf = weight.permute(4, 3, 0, 1, 2)
+    gx = torch.nn.grad.conv3d_input(x_cf.shape, w_cf, g_cf, padding=1)
+    gw = torch.nn.grad.conv3d_weight(x_cf, w_cf.shape, g_cf, padding=1)
+    gb = None if bias is None else g.sum(dim=(0, 1, 2, 3), dtype=torch.float32).to(bias.dtype)
+    return gx.permute(0, 2, 3, 4, 1).contiguous(), gw.permute(2, 3, 4, 1, 0).contiguous(), gb
+
+
+class _Conv3dDslice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight, bias)
+        return _forward(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return conv3d_dslice_bwd(*ctx.saved_tensors, g)
 
 
 def conv3d_dslice(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
-    """3x3x3 pad-1 conv, NDHWC. CPU tensors: the plain version. CUDA
-    tensors: the K5 kernel, or an error."""
+    """3x3x3 pad-1 conv, NDHWC, differentiable. CPU tensors: the plain
+    version. CUDA tensors: the K5 kernel, or an error."""
     if x.ndim != 5 or weight.shape[:4] != (3, 3, 3, x.shape[-1]):
         raise ValueError(f"conv3d_dslice: x {tuple(x.shape)} / weight {tuple(weight.shape)} "
                          "must be [B, D, H, W, C] / [3, 3, 3, C, Co]")
+    _build.check_device("conv3d_dslice", x.device)
+    return _Conv3dDslice.apply(x, weight, bias)
+
+
+conv3d_dslice.launches = 0
+
+
+def _forward(x, weight, bias):
     if x.device.type == "cpu":
         return conv3d_dslice_plain(x, weight, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3d_dslice: no kernel for device {x.device}")
     co = weight.shape[-1]
     if co != CO:
         raise ValueError(f"conv3d_dslice: the kernel takes Co = {CO} output channels, not {co}")
+    if bias is not None and bias.shape != weight.shape[-1:]:
+        raise ValueError(f"conv3d_dslice: bias {tuple(bias.shape)} must be [{co}]")
     _build.check_cuda_tensors("conv3d_dslice", x.device, x=x, weight=weight, bias=bias)
-    if weight.dtype != x.dtype or (bias is not None and (bias.dtype != x.dtype or bias.shape != weight.shape[-1:])):
-        raise TypeError("conv3d_dslice: weight and bias must match x's dtype and Co")
     b, d, h, w, c = x.shape
     if b * d * h * w * max(c, co) >= 2**31:
         raise ValueError("conv3d_dslice: tensor too large for the kernel's 32-bit indexing")
-    fn = _lib()
+    fn = _build.entry("conv3d_dslice", "dpf_conv3d_k3",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
             b, d, h, w, c, co, int(x.dtype == torch.bfloat16), _build.current_stream(x.device))
     conv3d_dslice.launches += 1
     _build.check_launch(rc, "conv3d_dslice")
     return out
-
-
-conv3d_dslice.launches = 0

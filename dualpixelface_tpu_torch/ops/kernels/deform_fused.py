@@ -1,22 +1,26 @@
 """K1: deformable 3x3x3 convolution, stride 1, pad 1, NDHWC (the ANM
-deform convs), windowed or unbounded.
+deform convs), windowed or unbounded; K2: its backward.
 
-Replaces the TPU kernel `deform_conv3d_fused` -> `_fused_call` in
+Replaces the TPU kernels `deform_conv3d_fused` -> `_fused_call` and
+`deform_conv3d_fused_bwd` -> `_fused_bwd_call` in
 `dualpixelface_tpu/ops/kernels/deform_fused.py`. On the TPU the sampling
 had to be one-hot matmuls over a +-3 voxel window; on the card it is a
-gather (`csrc/deform_conv3d.cu`, source note there), so one kernel serves
-both semantics through `aperture`:
+gather (`csrc/deform_conv3d.cu`) and the backward a gather/scatter
+(`csrc/deform_conv3d_bwd.cu`; source notes there), so one kernel pair
+serves both semantics through `aperture`:
 
   * aperture=True: H/W sampling positions clamped to
     [out - AP, out + AP + 1 - EPS] (`clamp_positions`), the TPU kernel's
     windowed semantics (`deform_impl='pallas'`);
   * aperture=False: unbounded, the reference's sampling (`packed8`).
 
-`deform_conv3d_fused` takes the plain PyTorch version for tensors on the
-CPU and the kernel for CUDA tensors; anything else raises, as does a CUDA
-call with other than CO output channels (the one width the kernel is built
-for).
-`deform_conv3d_fused.launches` counts kernel launches.
+`deform_conv3d_fused` is differentiable: its backward recomputes from the
+saved inputs, as the JAX custom VJP does, through `deform_conv3d_bwd`.
+Each wrapper takes the plain PyTorch version for tensors on the CPU and the
+kernel for CUDA tensors; anything else raises, as does a CUDA call with
+other than CO output channels (the one width the kernels are built for).
+`deform_conv3d_fused.launches` and `deform_conv3d_bwd.launches` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ AP = 3               # aperture: +-AP voxels around the output voxel (H, W)
 EPS = 1.0 / 1024.0
 KTAPS = 27
 CO = 64              # the kernel's output channels: the ANM deform convs', its only caller
+CIN_MAX = 64         # K2 keeps a tap's weight rows for up to 64 input channels in shared memory
 
 
 def clamp_positions(pos: torch.Tensor, out_coord: torch.Tensor) -> torch.Tensor:
@@ -67,7 +72,9 @@ def deform_conv3d_plain(x, offset, weight, bias=None, aperture=False):
     d0, h0, w0 = torch.floor(pos_d), torch.floor(pos_h), torch.floor(pos_w)
     fd, fh, fw = pos_d - d0, pos_h - h0, pos_w - w0
 
-    x_flat = x.reshape(b * n, c)
+    # gathered from an f32 copy: the same values, and in bf16 the backward
+    # then accumulates x's gradient in f32 and rounds it once
+    x_flat = x.reshape(b * n, c).float()
     batch_base = (torch.arange(b, device=dev) * n).reshape(b, 1, 1)
     cols = torch.zeros((b, n, KTAPS, c), dtype=f32, device=dev)
     for cz in (0, 1):
@@ -80,7 +87,7 @@ def deform_conv3d_plain(x, offset, weight, bias=None, aperture=False):
                 wgt = torch.where(ok, wz * wy * wx, torch.zeros((), dtype=f32, device=dev))
                 lin = (zi.clamp(0, d - 1) * h + yi.clamp(0, h - 1)) * w + xi.clamp(0, w - 1)
                 idx = (lin.long() + batch_base).reshape(-1)
-                cols += wgt[..., None] * x_flat.index_select(0, idx).reshape(b, n, KTAPS, c).to(f32)
+                cols += wgt[..., None] * x_flat.index_select(0, idx).reshape(b, n, KTAPS, c)
     cols = cols.to(x.dtype).reshape(b * n, KTAPS * c)
     out = (cols.float() @ weight.reshape(KTAPS * c, co).float()).to(x.dtype)
     if bias is not None:
@@ -88,46 +95,118 @@ def deform_conv3d_plain(x, offset, weight, bias=None, aperture=False):
     return out.reshape(b, d, h, w, co)
 
 
-def _lib():
-    lib = _build.load("deform_conv3d")
-    fn = lib.dpf_deform_conv3d
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def deform_conv3d_bwd_plain(x, offset, weight, bias, g, aperture=False):
+    """(gx, goff, gw, gb) of `deform_conv3d_plain` for the cotangent g,
+    by autograd through it: floor-based corners (derivative -1 / +1 at an
+    integer position), zero from corners outside the volume, and the
+    aperture clamp's 0.5 at a bound, as the TPU kernel's `_hat_grad` and
+    `jnp.clip` give them. gb is None without a bias."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, offset, weight)]
+        if bias is not None:
+            leaves.append(bias.detach().requires_grad_(True))
+        out = deform_conv3d_plain(*leaves[:3], leaves[3] if bias is not None else None, aperture)
+        grads = torch.autograd.grad(out, leaves, g)
+    return tuple(grads) + ((None,) if bias is None else ())
 
 
-def deform_conv3d_fused(x, offset, weight, bias=None, aperture=True):
-    """Deformable 3x3x3 conv, stride 1, pad 1. CPU tensors: the plain
-    version. CUDA tensors: the K1 kernel, or an error."""
+def _check_inputs(name, x, offset, weight):
     if x.ndim != 5 or offset.shape != x.shape[:4] + (3 * KTAPS,) or weight.shape[:4] != (3, 3, 3, x.shape[-1]):
         raise ValueError(
-            f"deform_conv3d_fused: x {tuple(x.shape)}, offset {tuple(offset.shape)}, weight "
+            f"{name}: x {tuple(x.shape)}, offset {tuple(offset.shape)}, weight "
             f"{tuple(weight.shape)} must be [B, D, H, W, C], [B, D, H, W, 81], [3, 3, 3, C, Co]"
         )
-    if x.device.type == "cpu":
-        return deform_conv3d_plain(x, offset, weight, bias, aperture)
-    if x.device.type != "cuda":
-        raise ValueError(f"deform_conv3d_fused: no kernel for device {x.device}")
+    _build.check_device(name, x.device)
+
+
+def _check_cuda_call(name, x, offset, weight, bias, **more):
+    """What the CUDA kernels take: Co = CO, one dtype, 32-bit indexing."""
     co = weight.shape[-1]
     if co != CO:
-        raise ValueError(f"deform_conv3d_fused: the kernel takes Co = {CO} output channels, not {co}")
-    _build.check_cuda_tensors("deform_conv3d_fused", x.device, x=x, offset=offset, weight=weight, bias=bias)
-    if offset.dtype != x.dtype or weight.dtype != x.dtype or (
-        bias is not None and (bias.dtype != x.dtype or bias.shape != weight.shape[-1:])
-    ):
-        raise TypeError("deform_conv3d_fused: offset, weight and bias must match x's dtype and Co")
+        raise ValueError(f"{name}: the kernel takes Co = {CO} output channels, not {co}")
+    if bias is not None and bias.shape != weight.shape[-1:]:
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} must be [{co}]")
+    _build.check_cuda_tensors(name, x.device, x=x, offset=offset, weight=weight, bias=bias, **more)
     b, d, h, w, c = x.shape
     if b * d * h * w * max(c, co, 3 * KTAPS) >= 2**31:
-        raise ValueError("deform_conv3d_fused: tensor too large for the kernel's 32-bit indexing")
-    fn = _lib()
-    out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
+        raise ValueError(f"{name}: tensor too large for the kernel's 32-bit indexing")
+
+
+def _forward(x, offset, weight, bias, aperture):
+    if x.device.type == "cpu":
+        return deform_conv3d_plain(x, offset, weight, bias, aperture)
+    _check_cuda_call("deform_conv3d_fused", x, offset, weight, bias)
+    b, d, h, w, c = x.shape
+    fn = _build.entry("deform_conv3d", "dpf_deform_conv3d",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    out = torch.empty((b, d, h, w, CO), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), offset.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), b, d, h, w, c, co, int(bool(aperture)), int(x.dtype == torch.bfloat16),
+            out.data_ptr(), b, d, h, w, c, CO, int(bool(aperture)), int(x.dtype == torch.bfloat16),
             _build.current_stream(x.device))
     deform_conv3d_fused.launches += 1
     _build.check_launch(rc, "deform_conv3d_fused")
     return out
 
 
+class _DeformConv3d(torch.autograd.Function):
+    """K1 forward; the backward recomputes from (x, offset, weight, bias)."""
+
+    @staticmethod
+    def forward(ctx, x, offset, weight, bias, aperture):
+        ctx.save_for_backward(x, offset, weight, bias)
+        ctx.aperture = aperture
+        return _forward(x, offset, weight, bias, aperture)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset, weight, bias = ctx.saved_tensors
+        gx, goff, gw, gb = deform_conv3d_bwd(x, offset, weight, bias, g.contiguous(), ctx.aperture)
+        return gx, goff, gw, gb, None
+
+
+def deform_conv3d_fused(x, offset, weight, bias=None, aperture=True):
+    """Deformable 3x3x3 conv, stride 1, pad 1, differentiable. CPU tensors:
+    the plain version. CUDA tensors: the K1 kernel (K2 for the backward),
+    or an error."""
+    _check_inputs("deform_conv3d_fused", x, offset, weight)
+    return _DeformConv3d.apply(x, offset, weight, bias, bool(aperture))
+
+
 deform_conv3d_fused.launches = 0
+
+
+def deform_conv3d_bwd(x, offset, weight, bias, g, aperture=True):
+    """(gx, goff, gw, gb) of `deform_conv3d_fused` for the cotangent g
+    [B, D, H, W, Co], each in its input's dtype (gb None without a bias).
+    CPU tensors: `deform_conv3d_bwd_plain`. CUDA tensors: the K2 kernel, or
+    an error."""
+    _check_inputs("deform_conv3d_bwd", x, offset, weight)
+    if g.shape != x.shape[:4] + weight.shape[-1:]:
+        raise ValueError(f"deform_conv3d_bwd: g {tuple(g.shape)} must be {tuple(x.shape[:4] + weight.shape[-1:])}")
+    if x.device.type == "cpu":
+        return deform_conv3d_bwd_plain(x, offset, weight, bias, g, aperture)
+    _check_cuda_call("deform_conv3d_bwd", x, offset, weight, bias, g=g)
+    b, d, h, w, c = x.shape
+    if c > CIN_MAX:
+        raise ValueError(f"deform_conv3d_bwd: the kernel takes at most {CIN_MAX} input channels, not {c}")
+    m = b * d * h * w
+    # per-block gw partial sums: a share of the voxel tiles per block and tap
+    nsplit = max(1, min(32, -(-m // 4096)))
+    dev, f32 = x.device, torch.float32
+    gx32 = torch.empty(x.shape, dtype=f32, device=dev)
+    gx = gx32 if x.dtype == f32 else torch.empty_like(x)
+    goff = torch.empty_like(offset)
+    gwp = torch.empty((nsplit, KTAPS * c, CO), dtype=f32, device=dev)
+    gw = torch.empty_like(weight)
+    fn = _build.entry("deform_conv3d_bwd", "dpf_deform_conv3d_bwd",
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), offset.data_ptr(), weight.data_ptr(), g.data_ptr(), gx32.data_ptr(), gx.data_ptr(),
+            goff.data_ptr(), gwp.data_ptr(), gw.data_ptr(), b, d, h, w, c, CO, nsplit, int(bool(aperture)),
+            int(x.dtype == torch.bfloat16), _build.current_stream(dev))
+    deform_conv3d_bwd.launches += 1
+    _build.check_launch(rc, "deform_conv3d_bwd")
+    gb = None if bias is None else g.sum(dim=(0, 1, 2, 3), dtype=f32).to(bias.dtype)
+    return gx, goff, gw, gb
+
+
+deform_conv3d_bwd.launches = 0

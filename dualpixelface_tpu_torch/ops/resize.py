@@ -46,11 +46,13 @@ def _nearest_index(out_size: int, in_size: int) -> np.ndarray:
 # pageable host memory waits for the stream to drain, and one per call left
 # the card idle between kernels (profile_serving.py). Callers only read them.
 @functools.lru_cache(maxsize=128)
+@torch.inference_mode(False)  # cached: usable in autograd after serving
 def _device_linear(out_size: int, in_size: int, align_corners: bool, device, dtype) -> torch.Tensor:
     return torch.as_tensor(_linear_matrix(out_size, in_size, align_corners), dtype=dtype, device=device)
 
 
 @functools.lru_cache(maxsize=128)
+@torch.inference_mode(False)  # cached: usable in autograd after serving
 def _device_nearest(out_size: int, in_size: int, device) -> torch.Tensor:
     return torch.as_tensor(_nearest_index(out_size, in_size), device=device)
 

@@ -5,7 +5,7 @@
 Runs the stereodpnet_plus serving forward at the serving cell's shape
 (batch B = 4 at H x W = 768 x 576, bf16, seeded weights with non-zero
 offset heads) after a warm-up and prints, as JSON lines:
-  * the serving rate (`serve_timed` over --iters request batches);
+  * the serving rate (`timed` over --iters request batches);
   * each stage's device time (CUDA events around the model's top-level
     modules; the regression is the span between aggregation and the ANM);
   * the device's busy time and idle share, and the top kernels by device
@@ -36,27 +36,30 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def serve_timed(pred: Predictor, batches: list, check=None) -> dict:
-    """Answer `batches` one after another, each request complete (the card
-    synchronised) before the next is taken, as a server answers them, each
-    timed on the host clock. `check(result)` is called on each result
-    outside the timed spans. Returns the pairs served over the summed
-    latencies, and the latencies' median, min and max in seconds."""
+def timed(run, batches: list, check=None) -> dict:
+    """`run(batch)` for each batch, one after another, each complete (the
+    card synchronised) before the next is taken, as a server answers
+    requests and a trainer takes steps, each timed on the host clock.
+    `check(result)` is called on each result outside the timed spans.
+    Returns the pairs over the summed latencies, the number of calls, and
+    the latencies' median, min and max in seconds. It gives the serving rate
+    (`run` a `Predictor`) and the train rate (`run` one train step)."""
     lat = []
     for batch in batches:
         t0 = time.perf_counter()
-        res = pred(batch)
+        res = run(batch)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         if check is not None:
             check(res)
     pairs = sum(len(b["left"]) for b in batches)
-    return {"pairs_per_s": pairs / sum(lat), "batches": len(batches),
+    return {"pairs_per_s": pairs / sum(lat), "calls": len(batches),
             "latency_s": {"median": statistics.median(lat), "min": min(lat), "max": max(lat)}}
 
 
-def stage_times(pred: Predictor, batch: dict) -> dict:
-    """Device ms of each top-level stage of one forward."""
+def stage_times(model, run) -> dict:
+    """Device ms of each top-level stage of `model` during one `run()` that
+    calls its forward once."""
     events = {}
 
     def pre(name):
@@ -72,10 +75,10 @@ def stage_times(pred: Predictor, batch: dict) -> dict:
 
     handles = []
     for name in STAGES:
-        mod = getattr(pred.model, name)
+        mod = getattr(model, name)
         handles += [mod.register_forward_pre_hook(pre(name)), mod.register_forward_hook(post(name))]
     try:
-        pred(batch)
+        run()
         torch.cuda.synchronize()
     finally:
         for h in handles:
@@ -83,6 +86,39 @@ def stage_times(pred: Predictor, batch: dict) -> dict:
     out = {name: events[name][0].elapsed_time(events[name][1]) for name in STAGES}
     out["regression"] = events["aggregation"][1].elapsed_time(events["normal_estimator"][0])
     return out
+
+
+def device_profile(run, reps: int, top: int) -> list[dict]:
+    """torch.profiler over `reps` calls of `run` (each ending on the host):
+    the wall time, the device's busy time (the union of the kernels' device
+    intervals) and idle share, and the `top` kernels by device time per
+    call."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start = max(e.time_range.start, end)
+        if e.time_range.end > start:
+            busy_us += e.time_range.end - start
+        end = max(end, e.time_range.end)
+    span_us = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+    lines = [{"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+              "device_idle_share_of_wall": 1.0 - busy_us / 1e3 / wall_ms,
+              "device_idle_share_of_kernel_span": 1.0 - busy_us / span_us}]
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.end - e.time_range.start
+        acc[1] += 1
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        lines.append({"kernel": name[:120], "device_ms": us / 1e3 / reps, "calls": n // reps})
+    return lines
 
 
 def main() -> int:
@@ -99,35 +135,12 @@ def main() -> int:
     pred(batch)
     torch.cuda.synchronize()
 
-    rate = serve_timed(pred, [batch] * args.iters)
+    rate = timed(pred, [batch] * args.iters)
     print(json.dumps({"serving": rate, "card": _card(), "batch": B, "hw": [H, W]}), flush=True)
-    print(json.dumps({"stage_ms": stage_times(pred, batch)}), flush=True)
+    print(json.dumps({"stage_ms": stage_times(pred.model, lambda: pred(batch))}), flush=True)
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            pred(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")  # union of the kernels' device intervals
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        start = max(e.time_range.start, end)
-        if e.time_range.end > start:
-            busy_us += e.time_range.end - start
-        end = max(end, e.time_range.end)
-    span_us = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
-    print(json.dumps({"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-                      "device_idle_share_of_wall": 1.0 - busy_us / 1e3 / wall_ms,
-                      "device_idle_share_of_kernel_span": 1.0 - busy_us / span_us}), flush=True)
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.time_range.end - e.time_range.start
-        acc[1] += 1
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
-        print(json.dumps({"kernel": name[:120], "device_ms": us / 1e3 / 2, "calls": n // 2}), flush=True)
+    for line in device_profile(lambda: pred(batch), reps=2, top=args.top):
+        print(json.dumps(line), flush=True)
     return 0
 
 

@@ -1,13 +1,17 @@
 """Weights from the JAX package's (params, batch_stats) trees.
 
-`state_dict_from_jax` maps a Flax StereoDPNet variable tree onto the
-reference torch `state_dict` names the port's modules carry (the port's own
+`read_flax_msgpack` reads a checkpoint the JAX package saved
+(`flax.serialization.to_bytes`) without Flax. `state_dict_from_jax` maps a
+Flax StereoDPNet variable tree onto the reference torch `state_dict` names
+the port's modules carry (the port's own
 numpy copy of the mapping in `tools/export_stereodpnet_checkpoint.py`), so
 a JAX-trained checkpoint loads into the port with `strict=True`. Flax conv
 kernels [*k, I, O] become torch [O, I, *k]; transposed-conv kernels
 [*k, O, I] become torch ConvTranspose [I, O, *k].
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -142,6 +146,67 @@ def state_dict_from_jax(params, batch_stats, block_stack: int = 1) -> dict[str, 
         for i in range(6):
             m.conv(f"{ne}/n_convs{i}", f"{ne}.n_convs.{i}.0")
     return m.sd
+
+
+def _msgpack_value(buf: memoryview, i: int):
+    """(value, next offset) of the msgpack item at buf[i]: the subset Flax
+    emits (maps, lists, strings, bytes, numbers, and arrays as extension
+    type 1 holding (shape, dtype name, C-order bytes))."""
+    t = buf[i]
+    i += 1
+    if t <= 0x7F:
+        return t, i
+    if t >= 0xE0:
+        return t - 0x100, i
+    if 0x80 <= t <= 0x9F or t in (0xDC, 0xDD, 0xDE, 0xDF):  # map, array
+        if t <= 0x9F:
+            n, pairs = t & 0x0F, t < 0x90
+        else:
+            w = 2 if t in (0xDC, 0xDE) else 4
+            n, pairs, i = int.from_bytes(buf[i:i + w], "big"), t >= 0xDE, i + w
+        items = []
+        for _ in range(2 * n if pairs else n):
+            v, i = _msgpack_value(buf, i)
+            items.append(v)
+        return (dict(zip(items[::2], items[1::2])) if pairs else items), i
+    if 0xA0 <= t <= 0xBF:
+        return str(buf[i:i + (t & 0x1F)], "utf-8"), i + (t & 0x1F)
+    if t in (0xC0, 0xC2, 0xC3):
+        return {0xC0: None, 0xC2: False, 0xC3: True}[t], i
+    if t in (0xC4, 0xC5, 0xC6, 0xD9, 0xDA, 0xDB):  # bytes, str
+        w = {0xC4: 1, 0xC5: 2, 0xC6: 4, 0xD9: 1, 0xDA: 2, 0xDB: 4}[t]
+        n, i = int.from_bytes(buf[i:i + w], "big"), i + w
+        raw = buf[i:i + n]
+        return (bytes(raw) if t <= 0xC6 else str(raw, "utf-8")), i + n
+    if t in (0xCA, 0xCB):
+        n = 4 if t == 0xCA else 8
+        return float(np.frombuffer(bytes(buf[i:i + n]), ">f4" if n == 4 else ">f8")[0]), i + n
+    if 0xCC <= t <= 0xD3:  # uint, int of 1..8 bytes
+        n = 1 << ((t - 0xCC) % 4)
+        return int.from_bytes(buf[i:i + n], "big", signed=t >= 0xD0), i + n
+    if 0xC7 <= t <= 0xC9 or 0xD4 <= t <= 0xD8:  # ext, fixext
+        if t >= 0xD4:
+            n = 1 << (t - 0xD4)
+        else:
+            w = 1 << (t - 0xC7)
+            n, i = int.from_bytes(buf[i:i + w], "big"), i + w
+        if buf[i] != 1:
+            raise ValueError(f"msgpack extension type {buf[i]} is not an array")
+        (shape, dtype, raw), _ = _msgpack_value(buf[i + 1:i + 1 + n], 0)
+        return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape), i + 1 + n
+    raise ValueError(f"unknown msgpack type byte {t:#x}")
+
+
+def read_flax_msgpack(path) -> dict:
+    """The variable tree of a checkpoint that `flax.serialization.to_bytes`
+    wrote ({"params": ..., "batch_stats": ...}), as nested dicts of numpy
+    arrays: the port's own reader, for the committed checkpoint. It does
+    not join the chunked form Flax uses for arrays over 2**30 bytes."""
+    buf = memoryview(Path(path).read_bytes())
+    tree, end = _msgpack_value(buf, 0)
+    if end != len(buf):
+        raise ValueError(f"{path}: {len(buf) - end} bytes after the msgpack value")
+    return tree
 
 
 def load_state_dict(model: nn.Module, state_dict: dict) -> nn.Module:

@@ -1,5 +1,6 @@
 """The PyTorch port's kernel modules (K1 deform conv, K3 fused soft-argmin,
-K5 dense 3x3x3 conv) against the JAX package, on the CPU.
+K5 dense 3x3x3 conv) against the JAX package, on the CPU (the backward
+kernels K2 and K4 are held to JAX in test_torch_train.py).
 
 On the CPU each wrapper runs its plain PyTorch version, so these tests hold
 that version's arithmetic against the JAX function (and, at tiny shapes,
@@ -20,12 +21,13 @@ from dualpixelface_tpu.ops.kernels.conv3d_dslice import _conv3d_call, conv3d_dsl
 from dualpixelface_tpu.ops.kernels.deform_fused import deform_conv3d_fused as jax_deform_fused
 from dualpixelface_tpu.ops.kernels.fused_softargmin import fused_softargmin as jax_fused_softargmin
 from dualpixelface_tpu.ops.resize import upsample3d_trilinear
-from dualpixelface_tpu_torch.ops.kernels import kernel_wrappers
+from dualpixelface_tpu_torch.ops.kernels import launch_counts
 from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice
-from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_fused
-from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin
+from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_bwd, deform_conv3d_fused
+from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin, fused_softargmin_bwd
+from torch_cpu_setup import two_threads
 
-torch.set_num_threads(2)
+two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
 
 # f32 on both sides; the sums run in another order (XLA vs ATen), so
 # agreement is to a few f32 ulps of the output scale.
@@ -91,7 +93,10 @@ def test_fused_softargmin_matches_pallas_interpret(b, d, h, w):
     got = fused_softargmin(torch.from_numpy(cost), dv, factor=4).numpy()
     # the TPU kernel interpolates with dense dots in another order; the JAX
     # package holds it to 1e-4 against its own oracle (test_pallas_kernels.py)
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    err = np.abs(got - ref)
+    at = np.unravel_index(np.argmax(err), err.shape)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4,
+                               err_msg=f"max abs err {err.max():.3e} at {at}: port {got[at]}, JAX {ref[at]}")
 
 
 @pytest.mark.parametrize("h", [8, 5, 7], ids=["4h%32==0", "4h%32!=0", "odd"])
@@ -133,15 +138,20 @@ class _TensorOnCuda(torch.Tensor):
 
 
 def _wrapper_calls(make):
-    # the output widths the kernels are built for: K1 64, K5 81
+    # the output widths the kernels are built for: K1 and K2 64, K5 81
     x = make(torch.zeros(1, 2, 4, 4, 3))
     off = make(torch.zeros(1, 2, 4, 4, 81))
     w64 = make(torch.zeros(3, 3, 3, 3, 64))
     w81 = make(torch.zeros(3, 3, 3, 3, 81))
+    g64 = make(torch.zeros(1, 2, 4, 4, 64))
     cost = make(torch.zeros(1, 8, 4, 4))
+    g_up = make(torch.zeros(1, 16, 16))
+    dv = regression_disparities(-4, 12, 8, 4)
     return [
         lambda: deform_conv3d_fused(x, off, w64, None, aperture=True),
-        lambda: fused_softargmin(cost, regression_disparities(-4, 12, 8, 4), factor=4),
+        lambda: deform_conv3d_bwd(x, off, w64, None, g64, aperture=True),
+        lambda: fused_softargmin(cost, dv, factor=4),
+        lambda: fused_softargmin_bwd(cost, g_up, dv, factor=4),
         lambda: conv3d_dslice(x, w81, None),
     ]
 
@@ -156,28 +166,32 @@ def test_wrappers_raise_instead_of_falling_back(make):
     toolkit and no card here, every call raises and nothing is counted."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the fake CUDA tensor could reach a kernel")
-    before = [fn.launches for fn in kernel_wrappers()]
-    for call in _wrapper_calls(make):
+    before = launch_counts()
+    calls = _wrapper_calls(make)
+    assert len(calls) == len(before)  # every kernel's wrapper
+    for call in calls:
         with pytest.raises((RuntimeError, ValueError)):
             call()
-    assert [fn.launches for fn in kernel_wrappers()] == before
+    assert launch_counts() == before
 
 
-@pytest.mark.parametrize("kernel", ["deform_conv3d_fused", "conv3d_dslice"])
+@pytest.mark.parametrize("kernel", ["deform_conv3d_fused", "deform_conv3d_bwd", "conv3d_dslice"])
 def test_wrappers_refuse_other_output_widths(kernel):
-    """K1 and K5 are built for their one caller's output width (64, 81): a
-    CUDA call with another width raises before anything is launched or
-    counted, while the CPU path takes any width."""
+    """K1, K2 and K5 are built for their one caller's output width (64, 64,
+    81): a CUDA call with another width raises before anything is launched
+    or counted, while the CPU path takes any width."""
     x = torch.zeros(1, 2, 4, 4, 3)
     off = torch.zeros(1, 2, 4, 4, 81)
     w = torch.zeros(3, 3, 3, 3, 5)
+    g = torch.zeros(1, 2, 4, 4, 5)
     call = {
-        "deform_conv3d_fused": lambda x_, o_, w_: deform_conv3d_fused(x_, o_, w_, None, aperture=True),
-        "conv3d_dslice": lambda x_, o_, w_: conv3d_dslice(x_, w_, None),
+        "deform_conv3d_fused": lambda x_, o_, w_, g_: deform_conv3d_fused(x_, o_, w_, None, aperture=True),
+        "deform_conv3d_bwd": lambda x_, o_, w_, g_: deform_conv3d_bwd(x_, o_, w_, None, g_, aperture=True)[2],
+        "conv3d_dslice": lambda x_, o_, w_, g_: conv3d_dslice(x_, w_, None),
     }[kernel]
-    assert call(x, off, w).shape == (1, 2, 4, 4, 5)
-    before = [fn.launches for fn in kernel_wrappers()]
-    on_cuda = [torch.Tensor._make_subclass(_TensorOnCuda, t) for t in (x, off, w)]
+    assert call(x, off, w, g).shape[-1] == 5
+    before = launch_counts()
+    on_cuda = [torch.Tensor._make_subclass(_TensorOnCuda, t) for t in (x, off, w, g)]
     with pytest.raises(ValueError, match="output channels"):
         call(*on_cuda)
-    assert [fn.launches for fn in kernel_wrappers()] == before
+    assert launch_counts() == before

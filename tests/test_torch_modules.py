@@ -29,8 +29,9 @@ from dualpixelface_tpu_torch.ops import asm as pt_asm
 from dualpixelface_tpu_torch.ops import blocks as pt_blocks
 from dualpixelface_tpu_torch.ops import resize as pt_resize
 from dualpixelface_tpu_torch.weights import load_state_dict, state_dict_from_jax
+from torch_cpu_setup import two_threads
 
-torch.set_num_threads(2)
+two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
 
 C = 8  # inplanes: narrow, so the whole tree stays small
 HW = 64
@@ -242,7 +243,7 @@ def test_aggregation(shared, upsample):
     logits, feats = jm.apply(_sub(variables, "aggregation"), jnp.asarray(cost), False)
     pt_model.aggregation.upsample = upsample
     try:
-        got_logits, got_feat = pt_model.aggregation(_cf(cost))
+        [got_logits], [got_feat] = pt_model.aggregation(_cf(cost))
     finally:
         pt_model.aggregation.upsample = False
     assert got_logits.shape == logits[0].shape

@@ -26,12 +26,14 @@ from dualpixelface_tpu.models import model_selector as jax_model_selector
 from dualpixelface_tpu_torch.config import load_config
 from dualpixelface_tpu_torch.models import build_model
 from dualpixelface_tpu_torch.serve import Predictor
-from dualpixelface_tpu_torch.weights import load_state_dict, state_dict_from_jax
+from dualpixelface_tpu_torch.train.state import create_train_state
+from dualpixelface_tpu_torch.weights import load_state_dict, read_flax_msgpack, state_dict_from_jax
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 from export_stereodpnet_checkpoint import export_stereodpnet_state_dict  # noqa: E402
+from torch_cpu_setup import two_threads  # noqa: E402
 
-torch.set_num_threads(2)
+two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLATEAU = os.path.join(REPO, "tests", "data", "serving_plateau_192.msgpack")
@@ -58,6 +60,21 @@ def jax_side():
         plateau = jax.tree_util.tree_map(np.asarray, flax.serialization.from_bytes(init, f.read()))
     apply = jax.jit(lambda v, b: model.apply(v, b, train=False))
     return {"seeded-noisy-offsets": noisy, "plateau-checkpoint": plateau}, apply, batch
+
+
+def test_read_flax_msgpack_matches_flax():
+    """The port's Flax-free reader gives the committed checkpoint's tree as
+    `flax.serialization.msgpack_restore` does: the same keys, dtypes and
+    values."""
+    ours = read_flax_msgpack(PLATEAU)
+    with open(PLATEAU, "rb") as f:
+        theirs = flax.serialization.msgpack_restore(f.read())
+    a, b = jax.tree_util.tree_leaves_with_path(ours), jax.tree_util.tree_leaves_with_path(theirs)
+    assert [jax.tree_util.keystr(p) for p, _ in a] == [jax.tree_util.keystr(p) for p, _ in b]
+    assert len(a) == 435
+    for (path, x), (_, y) in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape, jax.tree_util.keystr(path)
+        np.testing.assert_array_equal(x, y, err_msg=jax.tree_util.keystr(path))
 
 
 def test_state_dict_matches_exporter_and_loads_strictly(jax_side):
@@ -123,3 +140,5 @@ def test_entry_points_refuse_to_run_without_cuda():
         Predictor(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(cfg, steps_per_epoch=1)
