@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from `dualpixelface_tpu_torch/csrc/`
+  2. build the nine CUDA kernels from `dualpixelface_tpu_torch/csrc/`
      (one nvcc per source, all at once) and print the build seconds;
   3. check each forward kernel (K1, K3, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
@@ -33,10 +33,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. one f32 train step of batch 2 at 32x32 from the committed plateau
      checkpoint on the card against the same step on the CPU, at a point
      where both took the same side of every kink: losses and each
-     parameter's gradient.
-The line before the last is the `kernels` JSON (launches: the train path's
-run of phase 7; `launches_serving`: phase 5's); the last line is
-{"ok": true, "device": {...}}.
+     parameter's gradient;
+  9. the tools' kernels (`tools_phase`): T2-T4 at the eight runs of
+     `python3 -m dualpixelface_tpu_torch.tools.bench_vpu_prims` (G = 4096)
+     and T1 at the four stride-1 hourglass sites of
+     `python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold` (768x576,
+     batch 4), each checked against its plain version and then driven
+     through its tool's measurement, timed beside its bound.
+The line before the last is the `kernels` JSON with nine rows (launches:
+K1-K5 the train path's run of phase 7, `launches_serving` phase 5's; T1-T4
+the tools' measurements in phase 9, whose T rows sum the runs' times and
+bounds); the last line is {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -50,12 +57,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
-# cores, HBM3 bandwidth.
-PEAK_BF16 = 989e12
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
 
 # Serving path shapes (stereodpnet_plus at 768x576, batch 4): the ANM volume
 # is [B, K=4, H/4, W/4, C] with C = 35 into deform_conv1, 64 into deform_conv2.
@@ -98,11 +99,17 @@ TPU_SITES = {
     "K3": "dualpixelface_tpu/ops/kernels/fused_softargmin.py:238",
     "K4": "dualpixelface_tpu/ops/kernels/fused_softargmin.py:198",
     "K5": "dualpixelface_tpu/ops/kernels/conv3d_dslice.py:207",
+    "T1": "tools/attic/conv3d_dslice_v2.py:139",
+    "T2": "tools/bench_vpu_prims.py:39",
+    "T3": "tools/bench_vpu_prims.py:70",
+    "T4": "tools/bench_vpu_prims.py:94",
 }
 SOURCES = {"K1": "deform_conv3d.cu", "K2": "deform_conv3d_bwd.cu", "K3": "fused_softargmin.cu",
-           "K4": "fused_softargmin_bwd.cu", "K5": "conv3d_dslice.cu"}
+           "K4": "fused_softargmin_bwd.cu", "K5": "conv3d_dslice.cu", "T1": "conv3d_dslice_v2.cu",
+           "T2": "prims_gather.cu", "T3": "prims_transpose.cu", "T4": "prims_dot.cu"}
 NAMES = {"K1": "deform_conv3d_fused", "K2": "deform_conv3d_bwd", "K3": "fused_softargmin",
-         "K4": "fused_softargmin_bwd", "K5": "conv3d_dslice"}
+         "K4": "fused_softargmin_bwd", "K5": "conv3d_dslice", "T1": "conv3d_dslice_v2", "T2": "lane_gather_sum",
+         "T3": "transpose_sum", "T4": "batched_dot"}
 
 
 def fail(msg: str) -> None:
@@ -116,21 +123,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def compare(name: str, got, ref, dtype_name: str, rel_tol: float | None = None) -> float:
@@ -179,6 +171,7 @@ def kernel_inputs(torch, gen, cin, dtype, shape=ANM_SHAPE, on_bound=False):
 
 
 def check_and_time_kernels(torch):
+    from dualpixelface_tpu_torch.tools import cuda_ms
     from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_fused, deform_conv3d_plain
@@ -250,6 +243,7 @@ def check_and_time_backward_kernels(torch, err, timing):
     versions at the train path's shapes, in f32 and bf16; their times at
     bf16, the train dtype. The plain K2 at this shape holds ~30 GB of
     autograd state, so each comparison frees it before the next."""
+    from dualpixelface_tpu_torch.tools import cuda_ms
     from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_bwd, deform_conv3d_bwd_plain
     from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin_bwd, fused_softargmin_bwd_plain
@@ -307,13 +301,81 @@ def check_and_time_backward_kernels(torch, err, timing):
                 k4["bytes"] = 2 * cost.numel() * cost.element_size() + g.numel() * g.element_size()
 
 
-def bound(entry, peak_flops):
-    """The least time for the work: the larger of its operations over the
-    peak rate of their type (contractions at `peak_flops`, other f32 work
-    on the CUDA cores) and its bytes over the memory rate."""
-    t_ops = max(entry["flops"] / peak_flops, entry.get("flops_f32", 0.0) / PEAK_F32) * 1e3
-    t_bytes = entry["bytes"] / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def tools_phase(torch):
+    """Phase 9: the tools' kernels T1-T4, each checked against its plain
+    version at the tools' full sizes and then driven through the tool's own
+    measurement (`tools.bench_vpu_prims.measure`, `tools.bench_dslice_fold.
+    measure`) with the launch counts set to 0 just before and read just
+    after: those counts are the T rows' `launches`.
+
+    T2 and T3 must agree bit for bit (the same adds in the same order and
+    dtype); T4 within 1e-4 of max(1, max|plain|) (f32 sums of 2240 exact
+    products in another order); T1 at the four stride-1 hourglass sites in
+    f32 and bf16, without and with the folded BatchNorm and ReLU, within
+    1e-4 of max(1, max|plain|) for the sums' order plus, in bf16, one ulp of
+    the output (both round one f32 value once). Each tool's inputs are
+    allocated once per shape and freed before the next."""
+    from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import conv3d_dslice_v2_plain
+    from dualpixelface_tpu_torch.tools import bench_dslice_fold as fold
+    from dualpixelface_tpu_torch.tools import bench_vpu_prims as vpu
+    from dualpixelface_tpu_torch.tools import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0, "bound_ops_ms": 0.0,
+                "err": 0.0, "launches": 0, "runs": []} for k in ("T1", "T2", "T3", "T4")}
+
+    def add(row, m, plain_ms, launches):
+        row["ms"] += m["ms"]
+        row["plain_ms"] += plain_ms
+        row["bound_ms"] += m["bound_ms"]
+        row["bound_ops_ms"] += m["bound_ms"] if m["bound_by"] == "operations" else 0.0
+        row["launches"] += launches
+        if m["library_ms"] is not None:
+            row["library_ms"] = (row["library_ms"] or 0.0) + m["library_ms"]
+        row["runs"].append(m)
+
+    for run in vpu.RUNS:
+        inputs = run.inputs(gen)
+        dname = str(run.dtype).removeprefix("torch.")
+        e = compare(f"{run.kernel_id} {run.label}", run.kernel(*inputs), run.plain(*inputs), dname,
+                    1e-4 if run.kind == "dot" else 0.0)
+        row = rows[run.kernel_id]
+        row["err"] = max(row["err"], e)
+        plain_ms = cuda_ms(lambda: run.plain(*inputs), 2)
+        reset_launch_counts()
+        m = vpu.measure(run, inputs)
+        n = launch_counts()[run.kernel_id]
+        print(json.dumps({**m, "plain_ms": plain_ms, "launches": n}), flush=True)
+        add(row, m, plain_ms, n)
+        del inputs
+        torch.cuda.empty_cache()
+
+    t1 = rows["T1"]
+    for label, shape, co in fold.SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = fold.site_inputs(shape, co, gen, dtype)
+            for r in fold.check(inp):
+                print(f"check T1 conv3d_dslice_v2 {label} {dtype} ab={r['ab']} relu={r['relu']}: "
+                      f"max_abs_err {r['max_abs_err']:.3e}, worst error / allowance {r['worst_ratio']:.3f}",
+                      flush=True)
+                if not r["worst_ratio"] <= 1.0:
+                    fail(f"T1 {label} {dtype}: kernel disagrees with its plain version")
+                if dtype == torch.bfloat16:
+                    t1["err"] = max(t1["err"], r["max_abs_err"])
+            if dtype == torch.bfloat16:
+                plain_ms = cuda_ms(lambda: conv3d_dslice_v2_plain(inp["x"], inp["wmat"], inp["ab"], relu=True), 1)
+                reset_launch_counts()
+                m = fold.measure(label, inp)
+                n = launch_counts()["T1"]
+                print(json.dumps({**m, "plain_ms": plain_ms, "launches": n}), flush=True)
+                add(t1, {**m, "ms": m["t1_ms"], "library_ms": m["cudnn_conv_ms"]}, plain_ms, n)
+            del inp
+            torch.cuda.empty_cache()
+    for k, row in rows.items():
+        if row["launches"] == 0:
+            fail(f"{k} was not launched by its tool's measurement")
+    return rows
 
 
 def check_results(torch, res, b, h, w):
@@ -340,7 +402,7 @@ def serve_full_width(torch, config, sd, card):
     reset_launch_counts()
     smoke = timed(pred, batches, check=lambda res: check_results(torch, res, B, H, W))
     launches = launch_counts()
-    want = {"K1": 2 * len(batches), "K2": 0, "K3": len(batches), "K4": 0, "K5": 2 * len(batches)}
+    want = {**dict.fromkeys(launches, 0), "K1": 2 * len(batches), "K3": len(batches), "K5": 2 * len(batches)}
     print(f"serving launches {launches} (expected {want})", flush=True)
     if launches != want:
         fail(f"launch counts {launches} != {want}: the serving path did not run through every kernel")
@@ -405,7 +467,7 @@ def train_full_width(torch, sd, card):
     smoke = timed(lambda b: step(state, b)[1], batches, check=check)
     launches = launch_counts()
     per_step = {"K1": 2, "K2": 2, "K3": 3, "K4": 3, "K5": 2}
-    want = {k: n * len(batches) for k, n in per_step.items()}
+    want = {**dict.fromkeys(launches, 0), **{k: n * len(batches) for k, n in per_step.items()}}
     print(f"train launches {launches} (expected {want})", flush=True)
     if launches != want:
         fail(f"launch counts {launches} != {want}: the train path did not run through every kernel")
@@ -560,6 +622,7 @@ def main() -> int:
     from dualpixelface_tpu_torch.config import load_config
     from dualpixelface_tpu_torch.ops.kernels import _build
     from dualpixelface_tpu_torch.serve import seeded_state_dict
+    from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, bound_ms
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -581,16 +644,28 @@ def main() -> int:
     check_against_cpu(torch, config, sd)
     launches = train_full_width(torch, sd, card)
     train_against_cpu(torch)
+    tools = tools_phase(torch)
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5"):
         t = timing[k]
-        b_ms, b_by = bound(t, PEAK_F32 if k == "K3" else PEAK_BF16)
+        # contractions at their type's peak, other f32 work on the CUDA cores
+        b_ms, b_by = bound_ms(t["bytes"], (t["flops"], PEAK_F32 if k == "K3" else PEAK_BF16),
+                              (t.get("flops_f32", 0.0), PEAK_F32))
         kernels.append({
             "name": f"{k} {NAMES[k]}", "route": "cuda",
             "source": f"dualpixelface_tpu_torch/csrc/{SOURCES[k]}", "replaces": TPU_SITES[k],
             "launches": launches[k], "launches_serving": serving[k], "max_abs_err": err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library_ms"],
+        })
+    for k, row in tools.items():
+        kernels.append({
+            "name": f"{k} {NAMES[k]}", "route": "cuda",
+            "source": f"dualpixelface_tpu_torch/csrc/{SOURCES[k]}", "replaces": TPU_SITES[k],
+            "launches": row["launches"], "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": "operations" if 2 * row["bound_ops_ms"] >= row["bound_ms"] else "bytes",
+            "library_ms": row["library_ms"], "runs": len(row["runs"]),
         })
     print(json.dumps({"work": {k: {key: v for key, v in timing[k].items() if key.startswith(("flops", "bytes"))}
                                for k in timing}}), flush=True)

@@ -1,5 +1,5 @@
 // Shared pieces of the port's CUDA kernels: dtype conversions, the f32 ->
-// bf16 cast of the backward kernels' accumulators, and the im2col-GEMM tile that K1 (deform conv) and K5 (dense 3x3x3 conv) share.
+// bf16 cast of the backward kernels' accumulators, and the im2col-GEMM tile that K1 (deform conv), K5 and T1 (dense 3x3x3 convs) share.
 //
 // The GEMM tile is a plain SIMT design: a block of 256 threads (16 x 16)
 // owns BM = 128 output voxels x all Co <= 16*TN output channels; each thread
@@ -46,6 +46,46 @@ __global__ void cast_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* _
 inline int cast_bf16(const float* src, void* dst, long long n, cudaStream_t s) {
   cast_bf16_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(src, static_cast<__nv_bfloat16*>(dst), n);
   return (int)cudaGetLastError();
+}
+
+// The TM output voxels m0 + 16 r of an implicit-GEMM conv thread: the flat
+// index vm and its (d, h, w) in a [., D, H, W] volume.
+__device__ __forceinline__ void conv_voxels(int m0, int D, int H, int W, int (&vm)[TM], int (&vd)[TM],
+                                            int (&vh)[TM], int (&vw)[TM]) {
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    const int m = m0 + 16 * r;
+    vm[r] = m;
+    int t = m;
+    vw[r] = t % W; t /= W;
+    vh[r] = t % H; t /= H;
+    vd[r] = t % D;
+  }
+}
+
+// The A tile of a dense 3x3x3 pad-1 stride-1 conv over x [B, D, H, W, C]
+// as an implicit GEMM over the flattened (tap, channel) axis, K = 27 C:
+// As[tx][ty + 16 r] = x at the voxel conv_voxels gave, shifted by the tap of
+// row k = k0 + tx, channel k % C; 0 outside the volume (the zero padding) or
+// past K or M.
+template <typename T>
+__device__ __forceinline__ void load_conv_a_tile(float (*As)[BM + 1], const T* __restrict__ x,
+                                                 const int (&vm)[TM], const int (&vd)[TM],
+                                                 const int (&vh)[TM], const int (&vw)[TM], int k0,
+                                                 int M, int D, int H, int W, int C, int tx, int ty) {
+  const int K = 27 * C;
+  const int k = k0 + tx;
+  const int tap = k / C, c = k - tap * C;
+  const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+  const int shift = ((kd - 1) * H + (kh - 1)) * W + (kw - 1);
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    float v = 0.0f;
+    const int dd = vd[r] + kd - 1, hh = vh[r] + kh - 1, ww = vw[r] + kw - 1;
+    if (k < K && vm[r] < M && dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 && ww < W)
+      v = to_f32(x[(size_t)(vm[r] + shift) * C + c]);
+    As[tx][ty + 16 * r] = v;
+  }
 }
 
 // Bs[k][n] = W[krow0 + k][n] for k < nk and n < Co, else 0.

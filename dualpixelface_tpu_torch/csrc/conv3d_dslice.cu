@@ -39,15 +39,7 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ wmat, const T* _
 
   // The voxels this thread loads (and accumulates): m0 + ty + 16*r.
   int vm[TM], vd[TM], vh[TM], vw[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int m = m0 + ty + 16 * r;
-    vm[r] = m;
-    int t = m;
-    vw[r] = t % W; t /= W;
-    vh[r] = t % H; t /= H;
-    vd[r] = t % D;
-  }
+  conv_voxels(m0 + ty, D, H, W, vm, vd, vh, vw);
 
   float acc[TM][TN];
 #pragma unroll
@@ -56,18 +48,7 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ wmat, const T* _
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    const int k = k0 + tx;
-    const int tap = k / C, c = k - tap * C;
-    const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-    const int shift = ((kd - 1) * H + (kh - 1)) * W + (kw - 1);
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      float v = 0.0f;
-      const int dd = vd[r] + kd - 1, hh = vh[r] + kh - 1, ww = vw[r] + kw - 1;
-      if (k < K && vm[r] < M && dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = to_f32(x[(size_t)(vm[r] + shift) * C + c]);
-      As[tx][ty + 16 * r] = v;
-    }
+    load_conv_a_tile<T>(As, x, vm, vd, vh, vw, k0, M, D, H, W, C, tx, ty);
     load_b_tile<T, TN>(Bs, wmat, k0, min(BK, K - k0), CO, tid);
     __syncthreads();
     mma_tile<TN>(As, Bs, acc, tx, ty);

@@ -29,7 +29,8 @@ BUILD_DIR = (
     if (_PACKAGE.parent / "pyproject.toml").is_file()
     else Path.home() / ".cache" / "dualpixelface_tpu_torch" / "torch_kernels"
 )
-KERNELS = ("conv3d_dslice", "deform_conv3d", "deform_conv3d_bwd", "fused_softargmin", "fused_softargmin_bwd")
+KERNELS = ("conv3d_dslice", "deform_conv3d", "deform_conv3d_bwd", "fused_softargmin", "fused_softargmin_bwd",
+           "conv3d_dslice_v2", "prims_gather", "prims_transpose", "prims_dot")
 _HEADERS = ("common.cuh",)
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

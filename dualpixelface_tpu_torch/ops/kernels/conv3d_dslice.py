@@ -29,10 +29,10 @@ from dualpixelface_tpu_torch.ops.kernels import _build
 CO = 81  # the kernel's output channels: the deform offset heads' 3 x 27, its only caller
 
 
-def conv3d_dslice_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
-    """x [B, D, H, W, C], weight [3, 3, 3, C, Co] -> [B, D, H, W, Co].
-    im2col over the 27 taps, one f32 product, rounded to x's dtype; the bias
-    is then added in that dtype."""
+def conv3d_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """x [B, D, H, W, C], weight [3, 3, 3, C, Co] -> the 3x3x3 pad-1 conv's
+    f32 accumulator [B, D, H, W, Co]: im2col over the 27 taps, one f32
+    product (the inputs widened to f32)."""
     b, d, h, w, c = x.shape
     co = weight.shape[-1]
     xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
@@ -40,10 +40,17 @@ def conv3d_dslice_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
         [xp[:, kd:kd + d, kh:kh + h, kw:kw + w] for kd in range(3) for kh in range(3) for kw in range(3)],
         dim=-1,
     )
-    out = (cols.reshape(-1, 27 * c).float() @ weight.reshape(27 * c, co).float()).to(x.dtype)
+    return (cols.reshape(-1, 27 * c).float() @ weight.reshape(27 * c, co).float()).reshape(b, d, h, w, co)
+
+
+def conv3d_dslice_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x [B, D, H, W, C], weight [3, 3, 3, C, Co] -> [B, D, H, W, Co]: the
+    f32 accumulator (`conv3d_f32`) rounded to x's dtype; the bias is then
+    added in that dtype."""
+    out = conv3d_f32(x, weight).to(x.dtype)
     if bias is not None:
         out = out + bias.to(x.dtype)
-    return out.reshape(b, d, h, w, co)
+    return out
 
 
 def conv3d_dslice_bwd(x, weight, bias, g):

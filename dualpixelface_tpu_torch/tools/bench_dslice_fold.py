@@ -1,0 +1,153 @@
+"""A/B of the epilogue-fused 3x3x3 conv (T1, `conv3d_dslice_v2`) against
+the port's eval ConvBN3D + ReLU chain, on the card: the counterpart of
+`tools/bench_dslice_fold.py --module convbn` with the attic kernel in it.
+
+    python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold [--site dres]
+
+At each stride-1 site of the JAX tool's `SITES` that T1 serves (the Co-81
+offset heads are K5's), batch 4 at 768x576, bf16, seeded weights and
+BatchNorm statistics, it times with CUDA events over ITERS launches
+after one warm-up launch, in turns (T1, chain, conv, conv, chain, T1):
+
+  * T1 with the eval BatchNorm folded into `ab` and relu=True, on NDHWC
+    input;
+  * `blocks.ConvBN3D` (cuDNN conv + BatchNorm) + ReLU, on NCDHW input;
+  * cuDNN's conv alone, the yardstick;
+
+and checks T1 against its plain version without and with the folded
+BatchNorm and ReLU (`check`). One JSON line per site,
+after the card's name and power limit. No model path calls T1: the
+BatchNorm fold lives here, as in the JAX package. Needs a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+
+import torch
+
+from dualpixelface_tpu_torch.ops.blocks import ConvBN3D
+from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import conv3d_dslice_v2, conv3d_dslice_v2_plain
+from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, bound_ms, cuda_ms, require_cuda
+
+ITERS = 10
+SEED = 0
+
+# label, input [B, D, H, W, Cin], Co: the stride-1 hourglass sites at 768x576, batch 4
+SITES = (
+    ("dres0_0 64->32", (4, 8, 192, 144, 64), 32),
+    ("dres* 32->32", (4, 8, 192, 144, 32), 32),
+    ("hg conv2 64->64", (4, 4, 96, 72, 64), 64),
+    ("hg conv4 64->64", (4, 2, 48, 36, 64), 64),
+)
+
+
+def fold_bn(bn: torch.nn.BatchNorm3d) -> torch.Tensor:
+    """The eval BatchNorm as the affine [a; b] ([2, C] f32):
+    a = w * rsqrt(var + eps), b = beta - mean * a."""
+    a = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    return torch.stack([a, bn.bias.float() - bn.running_mean.float() * a]).contiguous()
+
+
+def site_inputs(shape, co: int, gen: torch.Generator, dtype=torch.bfloat16) -> dict:
+    """A seeded eval ConvBN3D (random BatchNorm statistics) on the card in
+    `dtype`, its input in both layouts, and T1's arguments."""
+    cin = shape[-1]
+    dev = gen.device
+    module = ConvBN3D(cin, co).to(dev).eval()
+    conv, bn = module[0], module[1]
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen, device=dev) / math.sqrt(27 * cin))
+        bn.weight.copy_(torch.rand(co, generator=gen, device=dev) + 0.5)
+        bn.bias.copy_(torch.randn(co, generator=gen, device=dev) * 0.5)
+        bn.running_mean.copy_(torch.randn(co, generator=gen, device=dev) * 0.5)
+        bn.running_var.copy_(torch.rand(co, generator=gen, device=dev) + 0.5)
+    module = module.to(dtype).requires_grad_(False)
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return {"module": module, "x": x, "x_cf": x.permute(0, 4, 1, 2, 3).contiguous(),
+            "wmat": conv.weight.permute(2, 3, 4, 1, 0).contiguous(), "ab": fold_bn(bn)}
+
+
+def work(inp: dict) -> dict:
+    """The conv's FLOP and the bytes T1 must move (x, wmat, ab read once,
+    the output written once)."""
+    b, d, h, w, c = inp["x"].shape
+    co = inp["wmat"].shape[-1]
+    m = b * d * h * w
+    nbytes = sum(t.numel() * t.element_size() for t in (inp["x"], inp["wmat"], inp["ab"]))
+    return {"flops": 2.0 * m * 27 * c * co, "bytes": nbytes + m * co * inp["x"].element_size()}
+
+
+def measure(label: str, inp: dict) -> dict:
+    """T1, the ConvBN3D + ReLU chain and cuDNN's conv, timed in turns."""
+    x, x_cf, wmat, ab, module = inp["x"], inp["x_cf"], inp["wmat"], inp["ab"], inp["module"]
+    conv = module[0]
+    fns = {
+        "t1": lambda: conv3d_dslice_v2(x, wmat, ab, relu=True),
+        "chain": lambda: torch.relu(module(x_cf)),
+        "conv": lambda: conv(x_cf),
+    }
+    times = {k: [] for k in fns}
+    for k in ("t1", "chain", "conv", "conv", "chain", "t1"):
+        times[k].append(cuda_ms(fns[k], ITERS))
+    w = work(inp)
+    b_ms, b_by = bound_ms(w["bytes"], (w["flops"], PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_F32))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    return {"site": label, "shape": list(x.shape), "co": wmat.shape[-1], "dtype": str(x.dtype),
+            "t1_ms": ms["t1"], "chain_ms": ms["chain"], "cudnn_conv_ms": ms["conv"],
+            "t1_over_chain": ms["t1"] / ms["chain"], "readings_ms": times, "bound_ms": b_ms, "bound_by": b_by,
+            "simt_f32_bound_ms": w["flops"] / PEAK_F32 * 1e3, "flops": w["flops"], "bytes": w["bytes"]}
+
+
+def check(inp: dict) -> list[dict]:
+    """T1 against its plain version on `inp`, without and then with the
+    folded BatchNorm and ReLU: for each, its largest error and the largest
+    ratio of an output's error to its allowance (`excess_error`)."""
+    res = []
+    for ab, relu in ((None, False), (inp["ab"], True)):
+        got = conv3d_dslice_v2(inp["x"], inp["wmat"], ab, relu=relu).float()
+        ref = conv3d_dslice_v2_plain(inp["x"], inp["wmat"], ab, relu=relu).float()
+        res.append({"ab": ab is not None, "relu": relu, **excess_error(got, ref, inp["x"].dtype)})
+        del got, ref
+    return res
+
+
+def excess_error(got: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype) -> dict:
+    """max |got - ref| and the largest ratio of an output's error to its
+    allowance: 1e-4 of max(1, max |ref|) (f32 sums in another order), plus,
+    in bf16, one ulp of the output (both round one f32 value once)."""
+    err = (got - ref).abs()
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    if dtype == torch.bfloat16:
+        mag = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
+        tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return {"max_abs_err": float(err.max()), "worst_ratio": float((err / tol).max())}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--site", default=None, help="comma-separated substring filter on site labels")
+    args = ap.parse_args()
+    require_cuda("bench_dslice_fold")
+    from dualpixelface_tpu_torch.profile_serving import _card
+
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps({"card": _card()}), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    wanted = args.site.split(",") if args.site else None
+    for label, shape, co in SITES:
+        if wanted and not any(s in label for s in wanted):
+            continue
+        inp = site_inputs(shape, co, gen)
+        res = {**measure(label, inp), "checks": check(inp)}
+        print(json.dumps(res), flush=True)
+        if any(c["worst_ratio"] > 1.0 for c in res["checks"]):
+            raise SystemExit(f"{label}: T1 disagrees with its plain version")
+        del inp
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -23,8 +23,10 @@ from dualpixelface_tpu.ops.kernels.fused_softargmin import fused_softargmin as j
 from dualpixelface_tpu.ops.resize import upsample3d_trilinear
 from dualpixelface_tpu_torch.ops.kernels import launch_counts
 from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice
+from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import conv3d_dslice_v2
 from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_bwd, deform_conv3d_fused
 from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin, fused_softargmin_bwd
+from dualpixelface_tpu_torch.ops.kernels.prims import batched_dot, lane_gather_sum, transpose_sum
 from torch_cpu_setup import two_threads
 
 two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
@@ -138,7 +140,7 @@ class _TensorOnCuda(torch.Tensor):
 
 
 def _wrapper_calls(make):
-    # the output widths the kernels are built for: K1 and K2 64, K5 81
+    # the output widths the kernels are built for: K1 and K2 64, K5 81, T1 32
     x = make(torch.zeros(1, 2, 4, 4, 3))
     off = make(torch.zeros(1, 2, 4, 4, 81))
     w64 = make(torch.zeros(3, 3, 3, 3, 64))
@@ -147,12 +149,22 @@ def _wrapper_calls(make):
     cost = make(torch.zeros(1, 8, 4, 4))
     g_up = make(torch.zeros(1, 16, 16))
     dv = regression_disparities(-4, 12, 8, 4)
+    # the tools' kernels (T1-T4), at the widths they are built for
+    w32 = make(torch.zeros(3, 3, 3, 3, 32))
+    tab = make(torch.zeros(2, 4, 128))
+    idx = make(torch.zeros(2, 8, 128, dtype=torch.int32))
+    slabs = make(torch.zeros(2, 8, 128, 80))
+    a, b = make(torch.zeros(2, 32, 16)), make(torch.zeros(2, 16, 64))
     return [
         lambda: deform_conv3d_fused(x, off, w64, None, aperture=True),
         lambda: deform_conv3d_bwd(x, off, w64, None, g64, aperture=True),
         lambda: fused_softargmin(cost, dv, factor=4),
         lambda: fused_softargmin_bwd(cost, g_up, dv, factor=4),
         lambda: conv3d_dslice(x, w81, None),
+        lambda: conv3d_dslice_v2(x, w32, None, relu=True),
+        lambda: lane_gather_sum(tab, idx),
+        lambda: transpose_sum(slabs),
+        lambda: batched_dot(a, b),
     ]
 
 
@@ -175,11 +187,11 @@ def test_wrappers_raise_instead_of_falling_back(make):
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("kernel", ["deform_conv3d_fused", "deform_conv3d_bwd", "conv3d_dslice"])
+@pytest.mark.parametrize("kernel", ["deform_conv3d_fused", "deform_conv3d_bwd", "conv3d_dslice", "conv3d_dslice_v2"])
 def test_wrappers_refuse_other_output_widths(kernel):
-    """K1, K2 and K5 are built for their one caller's output width (64, 64,
-    81): a CUDA call with another width raises before anything is launched
-    or counted, while the CPU path takes any width."""
+    """K1, K2, K5 and T1 are built for their callers' output widths (64,
+    64, 81; 32 and 64): a CUDA call with another width raises before
+    anything is launched or counted, while the CPU path takes any width."""
     x = torch.zeros(1, 2, 4, 4, 3)
     off = torch.zeros(1, 2, 4, 4, 81)
     w = torch.zeros(3, 3, 3, 3, 5)
@@ -188,6 +200,7 @@ def test_wrappers_refuse_other_output_widths(kernel):
         "deform_conv3d_fused": lambda x_, o_, w_, g_: deform_conv3d_fused(x_, o_, w_, None, aperture=True),
         "deform_conv3d_bwd": lambda x_, o_, w_, g_: deform_conv3d_bwd(x_, o_, w_, None, g_, aperture=True)[2],
         "conv3d_dslice": lambda x_, o_, w_, g_: conv3d_dslice(x_, w_, None),
+        "conv3d_dslice_v2": lambda x_, o_, w_, g_: conv3d_dslice_v2(x_, w_, None, relu=True),
     }[kernel]
     assert call(x, off, w, g).shape[-1] == 5
     before = launch_counts()
