@@ -6,15 +6,23 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the nine CUDA kernels from `dualpixelface_tpu_torch/csrc/`
-     (one nvcc per source, all at once) and print the build seconds;
+     (one nvcc per source, all at once), print the build seconds and each
+     entry function's registers, shared memory and spill bytes from the
+     build log; a tensor-core kernel (K5's and T1's bf16 route) that spills
+     fails;
   3. check each forward kernel (K1, K3, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
      in bf16 and f32 (TF32 off);
   3b. the same for the backward kernels at the train path's shapes: K2 (all
      four gradients, both apertures, a quarter of the offsets whole numbers
      and some on the window bound) and K4;
+  3c. K5 (Cin 35 and 64) and T1 (Co 32 and 64, without and with the folded
+     BatchNorm and ReLU) at small ragged shapes (`EDGE_SHAPES`: M no
+     multiple of a tile, H or W below 3, D = 1), bf16 and f32;
   4. time each forward kernel, its plain version and, for K5, cuDNN's
-     conv3d (which the port never calls) with CUDA events;
+     conv3d (which the port never calls) in NCDHW and in channels_last_3d
+     (the kernel's own NDHWC), the faster of the two as its `library_ms`,
+     with CUDA events;
   4b. the same for K2 and K4 at the train path's shapes;
   5. serve 3 request batches of 4 dual-pixel pairs at 768x576 in bf16
      through `Predictor` (seeded weights, non-zero offset heads): shapes,
@@ -40,6 +48,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      `python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold` (768x576,
      batch 4), each checked against its plain version and then driven
      through its tool's measurement, timed beside its bound.
+Then one line sets K5's bf16 time beside cuDNN's faster layout and T1's
+beside the ConvBN3D + ReLU chain, summed over their shapes (a reading,
+not a check).
 The line before the last is the `kernels` JSON with nine rows (launches:
 K1-K5 the train path's run of phase 7, `launches_serving` phase 5's; T1-T4
 the tools' measurements in phase 9, whose T rows sum the runs' times and
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +105,10 @@ BWD_TOL = {"float32": {"gx": 1e-4, "goff": 1e-4, "gw": 2e-5, "gb": 1e-4},
 K1_F32_OPS = 15
 K2_F32_OPS = 53
 
+# phase 3c: [B, D, H, W] of K5's and T1's ragged checks: M = 10, 378, 4, 15
+# (no multiple of a 128-voxel tile), H = 2 and 1, W = 2 and 1, D = 1
+EDGE_SHAPES = ((1, 1, 2, 5), (2, 3, 7, 9), (1, 2, 1, 2), (3, 5, 1, 1))
+
 TPU_SITES = {
     "K1": "dualpixelface_tpu/ops/kernels/deform_fused.py:598",
     "K2": "dualpixelface_tpu/ops/kernels/deform_fused.py:985",
@@ -123,6 +139,49 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per entry function of an `nvcc -Xptxas=-v` log: its mangled name,
+    registers, static shared memory and spill bytes."""
+    funcs = []
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            funcs.append({"function": m.group(1)})
+        elif funcs and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            funcs[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif funcs and (m := re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)):
+            funcs[-1].update(registers=int(m.group(1)), static_smem=int(m.group(2) or 0))
+    return funcs
+
+
+def print_build_report(report: dict) -> None:
+    """Phase 2's report: each entry function's registers, shared memory
+    (static, and for the tensor-core kernels the dynamic ring their C entry
+    points report) and spill bytes; fails if a tensor-core kernel spills."""
+    import ctypes
+
+    from dualpixelface_tpu_torch.ops.kernels import _build
+
+    # (library, N) of each instantiation of the tensor-core tile
+    dynamic = {("conv3d_dslice", 88): _build.load("conv3d_dslice").dpf_conv3d_k3_smem_bytes()}
+    smem_v2 = _build.load("conv3d_dslice_v2").dpf_conv3d_k3_affine_smem_bytes
+    smem_v2.argtypes = [ctypes.c_int]
+    dynamic.update({("conv3d_dslice_v2", co): smem_v2(co) for co in (32, 64)})
+    seen = set()
+    for name, r in report.items():
+        for f in ptxas_report(r["log"]):
+            line = (f"ptxas {name}: {f['function']}: {f.get('registers')} registers, {f.get('static_smem')} bytes "
+                    f"static smem, spill stores {f.get('spill_stores')} / loads {f.get('spill_loads')} bytes")
+            if m := re.search(r"conv3d_tc_kernelILi(\d+)E", f["function"]):
+                key = (name, int(m.group(1)))
+                seen.add(key)
+                line += f", dynamic smem {dynamic[key]} bytes (N = {key[1]})"
+                if f.get("spill_stores") != 0 or f.get("spill_loads") != 0:
+                    fail(f"the tensor-core kernel {f['function']} spills: {f}")
+            print(line, flush=True)
+    if seen != set(dynamic):
+        fail(f"the build log reports tensor-core kernels {sorted(seen)}, not {sorted(dynamic)}")
 
 
 def compare(name: str, got, ref, dtype_name: str, rel_tol: float | None = None) -> float:
@@ -171,7 +230,7 @@ def kernel_inputs(torch, gen, cin, dtype, shape=ANM_SHAPE, on_bound=False):
 
 
 def check_and_time_kernels(torch):
-    from dualpixelface_tpu_torch.tools import cuda_ms
+    from dualpixelface_tpu_torch.tools import cuda_ms, cudnn_conv3d_calls
     from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_fused, deform_conv3d_plain
@@ -209,13 +268,20 @@ def check_and_time_kernels(torch):
             k1["flops_f32"] += K1_F32_OPS * m * 27 * cin
             k1["bytes"] += sum(t.numel() * t.element_size() for t in (x, off, w, bias)) + m * COUT * 2
             k5 = timing["K5"]
-            k5["ms"] += cuda_ms(lambda: conv3d_dslice(x, w_off, b_off), 5)
-            k5["plain_ms"] += cuda_ms(lambda: conv3d_dslice_plain(x, w_off, b_off), 2)
-            x_cf = x.permute(0, 4, 1, 2, 3).contiguous()
-            w_cf = w_off.permute(4, 3, 0, 1, 2).contiguous()
-            lib = cuda_ms(lambda: torch.nn.functional.conv3d(x_cf, w_cf, b_off, padding=1), 5)
-            k5["library_ms"] = (k5["library_ms"] or 0.0) + lib
-            k5["flops"] += 2.0 * m * 27 * cin * 81
+            run = {"cin": cin, "ms": cuda_ms(lambda: conv3d_dslice(x, w_off, b_off), 5),
+                   "plain_ms": cuda_ms(lambda: conv3d_dslice_plain(x, w_off, b_off), 2),
+                   "flops": 2.0 * m * 27 * cin * 81}
+            for layout, call in cudnn_conv3d_calls(x, w_off, b_off).items():
+                run[f"cudnn_{layout}_ms"] = cuda_ms(call, 5)
+            run["cudnn_layout"] = min(("ncdhw", "channels_last_3d"), key=lambda k: run[f"cudnn_{k}_ms"])
+            run["cudnn_ms"] = run[f"cudnn_{run['cudnn_layout']}_ms"]
+            run["tflops"] = run["flops"] / run["ms"] / 1e9
+            print(json.dumps({"K5_run": run}), flush=True)
+            k5.setdefault("runs", []).append(run)
+            k5["ms"] += run["ms"]
+            k5["plain_ms"] += run["plain_ms"]
+            k5["library_ms"] = (k5["library_ms"] or 0.0) + run["cudnn_ms"]
+            k5["flops"] += run["flops"]
             k5["bytes"] += sum(t.numel() * t.element_size() for t in (x, w_off, b_off)) + m * 81 * 2
 
     disp = regression_disparities(-4, 12, 8, 4)
@@ -299,6 +365,31 @@ def check_and_time_backward_kernels(torch, err, timing):
                 # twice K3's per-pixel work: recompute, then the transpose
                 k4["flops_f32"] = 2 * npix * (9.0 * d + 9.0 * 4 * d + 1.0)
                 k4["bytes"] = 2 * cost.numel() * cost.element_size() + g.numel() * g.element_size()
+
+
+def check_edge_shapes(torch):
+    """Phase 3c: K5 and T1 at the ragged `EDGE_SHAPES`, Cin 35 and 64, bf16
+    and f32: K5 within `REL_TOL`, T1 (Co 32 and 64, without and with the
+    folded BatchNorm and ReLU) within `bench_dslice_fold.excess_error`'s
+    allowance."""
+    from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
+    from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import COS
+    from dualpixelface_tpu_torch.tools import bench_dslice_fold as fold
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype, dname in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        for shape in EDGE_SHAPES:
+            for cin in CINS:
+                x, _, _, _, w_off, b_off = kernel_inputs(torch, gen, cin, dtype, shape)
+                compare(f"K5 conv3d_dslice {shape + (cin,)}", conv3d_dslice(x, w_off, b_off),
+                        conv3d_dslice_plain(x, w_off, b_off), dname)
+                for co in COS:
+                    for r in fold.check(fold.site_inputs(shape + (cin,), co, gen, dtype)):
+                        print(f"check T1 conv3d_dslice_v2 {shape + (cin,)} -> {co} {dname} ab={r['ab']} "
+                              f"relu={r['relu']}: max_abs_err {r['max_abs_err']:.3e}, worst error / allowance "
+                              f"{r['worst_ratio']:.3f}", flush=True)
+                        if not r["worst_ratio"] <= 1.0:
+                            fail(f"T1 {shape + (cin,)} -> {co} {dname}: kernel disagrees with its plain version")
 
 
 def tools_phase(torch):
@@ -631,13 +722,11 @@ def main() -> int:
     report = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + json.dumps({k: round(v["seconds"], 1) for k, v in report.items()}), flush=True)
-    for name, r in report.items():
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+    print_build_report(report)
 
     err, timing = check_and_time_kernels(torch)
     check_and_time_backward_kernels(torch, err, timing)
+    check_edge_shapes(torch)
     config = load_config("stereodpnet_plus")
     sd = seeded_state_dict(config)
     serving = serve_full_width(torch, config, sd, card)
@@ -645,6 +734,13 @@ def main() -> int:
     launches = train_full_width(torch, sd, card)
     train_against_cpu(torch)
     tools = tools_phase(torch)
+    k5, t1 = timing["K5"], tools["T1"]
+    chain_ms = sum(r["chain_ms"] for r in t1["runs"])
+    print(json.dumps({"yardsticks": {
+        "K5_bf16_ms": k5["ms"], "K5_cudnn_best_ms": k5["library_ms"],
+        "K5_cudnn_layouts": [r["cudnn_layout"] for r in k5["runs"]], "K5_no_slower": k5["ms"] <= k5["library_ms"],
+        "T1_bf16_ms": t1["ms"], "T1_chain_ms": chain_ms, "T1_no_slower": t1["ms"] <= chain_ms, "card": card}}),
+        flush=True)
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5"):

@@ -2,9 +2,9 @@
 with a plain C interface -> ctypes).
 
 Each `csrc/<name>.cu` is compiled on its own for `sm_90a` into
-`BUILD_DIR/lib<name>-<hash>.so`, where the hash covers the source and the
-shared header, so an edited source rebuilds and an unchanged one loads from
-the last build. BUILD_DIR is `build/torch_kernels/` of the checkout when the
+`BUILD_DIR/lib<name>-<hash>.so`, where the hash covers the source and every
+header it includes with quotes (`sources`), so an edited source or header
+rebuilds and an unchanged one loads from the last build. BUILD_DIR is `build/torch_kernels/` of the checkout when the
 package runs from one (a `pyproject.toml` beside the package), and
 `~/.cache/dualpixelface_tpu_torch/torch_kernels/` for an installed copy.
 `build()` starts one nvcc per missing library, all at once, and waits for
@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,7 +32,7 @@ BUILD_DIR = (
 )
 KERNELS = ("conv3d_dslice", "deform_conv3d", "deform_conv3d_bwd", "fused_softargmin", "fused_softargmin_bwd",
            "conv3d_dslice_v2", "prims_gather", "prims_transpose", "prims_dot")
-_HEADERS = ("common.cuh",)
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
@@ -47,28 +48,44 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and every file it includes with `#include "..."`,
+    directly or through another such include."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f not in found:
+            found.append(f)
+            todo += [f.parent / inc for inc in _INCLUDE.findall(f.read_text())]
+    return found
+
+
 def library_path(name: str) -> Path:
+    """The library of kernel `name`, named by a hash of its sources."""
     h = hashlib.sha256()
-    for f in (f"{name}.cu",) + _HEADERS:
-        h.update((CSRC / f).read_bytes())
+    for f in sources(name):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> dict[str, dict]:
     """Compile every missing library in parallel. Returns, per kernel, the
     seconds its nvcc took (0.0 when it was already built) and the compiler's
-    register/shared-memory report. Raises if any compile fails."""
+    register/shared-memory report (that of the last build for a library
+    already built). Raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    report = {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "log": log.read_text() if log.exists() else ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
-    report = {name: {"seconds": 0.0, "log": ""} for name in names}
     failed = []
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()

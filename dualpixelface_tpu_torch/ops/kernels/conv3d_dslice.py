@@ -4,9 +4,12 @@ offset heads).
 Replaces the TPU kernel `conv3d_dslice_pallas` -> `_conv3d_call` in
 `dualpixelface_tpu/ops/kernels/conv3d_dslice.py`. The CUDA kernel
 (`csrc/conv3d_dslice.cu`) is an implicit GEMM over the flattened (tap,
-channel) axis with f32 accumulation; what bounds it and how its design
-meets that is in the source note there. It serves f32 and bf16 alike (the
-TPU kernel ran only in bf16 for lack of VMEM).
+channel) axis with f32 accumulation: on the tensor cores for bf16, on the
+CUDA cores for f32 (the TPU kernel ran only in bf16 for lack of VMEM); what
+bounds it and how its design meets that is in the source note there. For
+bf16 the wrapper first lays the operands out for the tensor cores
+(`pack_conv3d`, the job the JAX wrapper does with `w2`): x's channels
+padded to a multiple of 8, the weight as [N_PAD, Kp] with K contiguous.
 
 `conv3d_dslice` takes the plain PyTorch version for tensors on the CPU and
 the kernel for CUDA tensors; anything else raises, as does a CUDA call
@@ -27,6 +30,27 @@ import torch.nn.functional as F
 from dualpixelface_tpu_torch.ops.kernels import _build
 
 CO = 81  # the kernel's output channels: the deform offset heads' 3 x 27, its only caller
+N_PAD = 88  # CO padded to eleven n8 tiles: the tensor-core kernel's N
+BK = 64  # the tensor-core kernel's reduction tile; the packed weight's K is a multiple of it
+
+
+def pack_conv3d(x: torch.Tensor, weight: torch.Tensor, n_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core kernel's operands: x [B, D, H, W, C] with zero
+    channels appended up to Cp, a multiple of 8 (itself when C is one), and
+    weight [3, 3, 3, C, Co] as B [n_pad, Kp], K contiguous: row n, column
+    tap * Cp + c holds weight[kd, kh, kw, c, n], zero for padded channels,
+    for n >= Co and for columns past 27 Cp (Kp = 27 Cp rounded up to BK)."""
+    c, co = x.shape[-1], weight.shape[-1]
+    cp = -(-c // 8) * 8
+    if cp != c:
+        x = F.pad(x, (0, cp - c))
+        weight = F.pad(weight, (0, 0, 0, cp - c))
+    k = 27 * cp
+    kp = -(-k // BK) * BK
+    wt = weight.reshape(k, co)
+    if (kp, n_pad) != (k, co):
+        wt = F.pad(wt, (0, n_pad - co, 0, kp - k))
+    return x, wt.t().contiguous()
 
 
 def conv3d_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -105,9 +129,12 @@ def _forward(x, weight, bias):
         raise ValueError("conv3d_dslice: tensor too large for the kernel's 32-bit indexing")
     fn = _build.entry("conv3d_dslice", "dpf_conv3d_k3",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, weight = pack_conv3d(x, weight, N_PAD)
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, d, h, w, c, co, int(x.dtype == torch.bfloat16), _build.current_stream(x.device))
+            b, d, h, w, x.shape[-1], co, int(bf16), _build.current_stream(x.device))
     conv3d_dslice.launches += 1
     _build.check_launch(rc, "conv3d_dslice")
     return out

@@ -6,8 +6,9 @@ Replaces the TPU kernel `conv3d_dslice_v2` -> `_conv3d_call_v2` /
 calls: it is measured against the library's conv + BatchNorm + ReLU chain
 by `dualpixelface_tpu_torch.tools.bench_dslice_fold`. The CUDA kernel
 (`csrc/conv3d_dslice_v2.cu`) is K5's implicit GEMM at the hourglass widths
-(Co 32 and 64) with the epilogue in registers; what bounds it and how its
-design meets that is in the source note there.
+(Co 32 and 64) with the epilogue in registers, on the tensor cores for bf16
+(operands laid out by K5's `pack_conv3d`) and the CUDA cores for f32; what
+bounds it and how its design meets that is in the source note there.
 
 The forward computes what `_kernel_v2` computes: the f32 accumulator,
 then `acc * a + b` in f32 (ab = [a; b], [2, Co] f32), then the ReLU, then
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from dualpixelface_tpu_torch.ops.kernels import _build
-from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice_bwd, conv3d_f32
+from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice_bwd, conv3d_f32, pack_conv3d
 
 COS = (32, 64)  # the kernel's output widths: the hourglass's stride-1 sites
 
@@ -124,9 +125,12 @@ def _forward(x, wmat, ab, relu):
         raise ValueError("conv3d_dslice_v2: tensor too large for the kernel's 32-bit indexing")
     fn = _build.entry("conv3d_dslice_v2", "dpf_conv3d_k3_affine",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, wmat = pack_conv3d(x, wmat, co)
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), wmat.data_ptr(), None if ab is None else ab.data_ptr(), out.data_ptr(),
-            b, d, h, w, c, co, int(relu), int(x.dtype == torch.bfloat16), _build.current_stream(x.device))
+            b, d, h, w, x.shape[-1], co, int(relu), int(bf16), _build.current_stream(x.device))
     conv3d_dslice_v2.launches += 1
     _build.check_launch(rc, "conv3d_dslice_v2")
     return out

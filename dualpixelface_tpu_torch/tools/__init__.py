@@ -8,6 +8,8 @@ Both need a GPU and fail without one. Shared here: the H100's peak rates
 and the timing and bound helpers."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
@@ -35,6 +37,19 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cudnn_conv3d_calls(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> dict:
+    """The yardstick of K5 and T1, one call per memory layout: the
+    library's 3x3x3 pad-1 conv (cuDNN) of x [B, D, H, W, C] by weight
+    [3, 3, 3, C, Co] on NCDHW copies ("ncdhw") and on x's own NDHWC memory
+    viewed as NCDHW ("channels_last_3d"). The port never calls it."""
+    x_cf = x.permute(0, 4, 1, 2, 3)
+    w_cf = weight.permute(4, 3, 0, 1, 2)
+    operands = {"ncdhw": (x_cf.contiguous(), w_cf.contiguous()),
+                "channels_last_3d": (x_cf, w_cf.contiguous(memory_format=torch.channels_last_3d))}
+    return {name: functools.partial(torch.nn.functional.conv3d, a, w, bias, padding=1)
+            for name, (a, w) in operands.items()}
 
 
 def bound_ms(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:

@@ -7,12 +7,15 @@ the port's eval ConvBN3D + ReLU chain, on the card: the counterpart of
 At each stride-1 site of the JAX tool's `SITES` that T1 serves (the Co-81
 offset heads are K5's), batch 4 at 768x576, bf16, seeded weights and
 BatchNorm statistics, it times with CUDA events over ITERS launches
-after one warm-up launch, in turns (T1, chain, conv, conv, chain, T1):
+after one warm-up launch, in turns (T1, chain, conv NCDHW, conv
+channels_last_3d, and back):
 
   * T1 with the eval BatchNorm folded into `ab` and relu=True, on NDHWC
     input;
   * `blocks.ConvBN3D` (cuDNN conv + BatchNorm) + ReLU, on NCDHW input;
-  * cuDNN's conv alone, the yardstick;
+  * cuDNN's conv alone, the yardstick (`tools.cudnn_conv3d_calls`), on
+    NCDHW input and on channels_last_3d input (T1's NDHWC memory); the
+    faster is `cudnn_conv_ms`;
 
 and checks T1 against its plain version without and with the folded
 BatchNorm and ReLU (`check`). One JSON line per site,
@@ -29,7 +32,7 @@ import torch
 
 from dualpixelface_tpu_torch.ops.blocks import ConvBN3D
 from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import conv3d_dslice_v2, conv3d_dslice_v2_plain
-from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, bound_ms, cuda_ms, require_cuda
+from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, bound_ms, cuda_ms, cudnn_conv3d_calls, require_cuda
 
 ITERS = 10
 SEED = 0
@@ -80,23 +83,28 @@ def work(inp: dict) -> dict:
 
 
 def measure(label: str, inp: dict) -> dict:
-    """T1, the ConvBN3D + ReLU chain and cuDNN's conv, timed in turns."""
+    """T1, the ConvBN3D + ReLU chain and cuDNN's conv, timed in turns; the
+    conv in NCDHW (the chain's layout) and in channels_last_3d (x's NDHWC
+    memory, T1's layout), `cudnn_conv_ms` the faster of the two."""
     x, x_cf, wmat, ab, module = inp["x"], inp["x_cf"], inp["wmat"], inp["ab"], inp["module"]
-    conv = module[0]
     fns = {
         "t1": lambda: conv3d_dslice_v2(x, wmat, ab, relu=True),
         "chain": lambda: torch.relu(module(x_cf)),
-        "conv": lambda: conv(x_cf),
+        **{f"cudnn_{layout}": call for layout, call in cudnn_conv3d_calls(x, wmat).items()},
     }
     times = {k: [] for k in fns}
-    for k in ("t1", "chain", "conv", "conv", "chain", "t1"):
+    for k in ("t1", "chain", "cudnn_ncdhw", "cudnn_channels_last_3d", "cudnn_channels_last_3d", "cudnn_ncdhw",
+              "chain", "t1"):
         times[k].append(cuda_ms(fns[k], ITERS))
     w = work(inp)
     b_ms, b_by = bound_ms(w["bytes"], (w["flops"], PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_F32))
     ms = {k: sum(v) / len(v) for k, v in times.items()}
+    layout = min(("ncdhw", "channels_last_3d"), key=lambda k: ms[f"cudnn_{k}"])
     return {"site": label, "shape": list(x.shape), "co": wmat.shape[-1], "dtype": str(x.dtype),
-            "t1_ms": ms["t1"], "chain_ms": ms["chain"], "cudnn_conv_ms": ms["conv"],
-            "t1_over_chain": ms["t1"] / ms["chain"], "readings_ms": times, "bound_ms": b_ms, "bound_by": b_by,
+            "t1_ms": ms["t1"], "chain_ms": ms["chain"], "cudnn_conv_ms": ms[f"cudnn_{layout}"],
+            "cudnn_layout": layout, "cudnn_ncdhw_ms": ms["cudnn_ncdhw"],
+            "cudnn_channels_last_3d_ms": ms["cudnn_channels_last_3d"], "t1_over_chain": ms["t1"] / ms["chain"],
+            "t1_tflops": w["flops"] / ms["t1"] / 1e9, "readings_ms": times, "bound_ms": b_ms, "bound_by": b_by,
             "simt_f32_bound_ms": w["flops"] / PEAK_F32 * 1e3, "flops": w["flops"], "bytes": w["bytes"]}
 
 
