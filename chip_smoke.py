@@ -8,17 +8,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. build the nine CUDA kernels from `dualpixelface_tpu_torch/csrc/`
      (one nvcc per source, all at once), print the build seconds and each
      entry function's registers, shared memory and spill bytes from the
-     build log; a tensor-core kernel (K5's and T1's bf16 route) that spills
-     fails;
+     build log; a tensor-core kernel (the bf16 routes of K5 and T1, of K2
+     and of T4) that spills fails;
   3. check each forward kernel (K1, K3, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
      in bf16 and f32 (TF32 off);
   3b. the same for the backward kernels at the train path's shapes: K2 (all
      four gradients, both apertures, a quarter of the offsets whole numbers
-     and some on the window bound) and K4;
-  3c. K5 (Cin 35 and 64) and T1 (Co 32 and 64, without and with the folded
-     BatchNorm and ReLU) at small ragged shapes (`EDGE_SHAPES`: M no
-     multiple of a tile, H or W below 3, D = 1), bf16 and f32;
+     and some on the window bound; each check names its route, the
+     tensor cores for bf16 and the SIMT kernel for f32) and K4;
+  3c. K5 (Cin 35 and 64), T1 (Co 32 and 64, without and with the folded
+     BatchNorm and ReLU) and K2 (Cin 35 and 64, both apertures) at small
+     ragged shapes (`EDGE_SHAPES`: M no multiple of a tile, H or W below 3,
+     D = 1), bf16 and f32;
   4. time each forward kernel, its plain version and, for K5, cuDNN's
      conv3d (which the port never calls) in NCDHW and in channels_last_3d
      (the kernel's own NDHWC), the faster of the two as its `library_ms`,
@@ -47,7 +49,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and T1 at the four stride-1 hourglass sites of
      `python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold` (768x576,
      batch 4), each checked against its plain version and then driven
-     through its tool's measurement, timed beside its bound.
+     through its tool's measurement, timed beside its bound; before them,
+     T4 at ragged m (1, 33, 130) and k (8, 72, 2248), f32 and bf16.
 Then one line sets K5's bf16 time beside cuDNN's faster layout and T1's
 beside the ConvBN3D + ReLU chain, summed over their shapes (a reading,
 not a check).
@@ -105,7 +108,7 @@ BWD_TOL = {"float32": {"gx": 1e-4, "goff": 1e-4, "gw": 2e-5, "gb": 1e-4},
 K1_F32_OPS = 15
 K2_F32_OPS = 53
 
-# phase 3c: [B, D, H, W] of K5's and T1's ragged checks: M = 10, 378, 4, 15
+# phase 3c: [B, D, H, W] of K5's, T1's and K2's ragged checks: M = 10, 378, 4, 15
 # (no multiple of a 128-voxel tile), H = 2 and 1, W = 2 and 1, D = 1
 EDGE_SHAPES = ((1, 1, 2, 5), (2, 3, 7, 9), (1, 2, 1, 2), (3, 5, 1, 1))
 
@@ -157,26 +160,35 @@ def ptxas_report(log: str) -> list[dict]:
 
 def print_build_report(report: dict) -> None:
     """Phase 2's report: each entry function's registers, shared memory
-    (static, and for the tensor-core kernels the dynamic ring their C entry
-    points report) and spill bytes; fails if a tensor-core kernel spills."""
+    (static, and for the tensor-core kernels the dynamic shared memory
+    their C entry points report) and spill bytes; fails if a tensor-core
+    kernel spills or one is missing from the log."""
     import ctypes
 
     from dualpixelface_tpu_torch.ops.kernels import _build
 
-    # (library, N) of each instantiation of the tensor-core tile
-    dynamic = {("conv3d_dslice", 88): _build.load("conv3d_dslice").dpf_conv3d_k3_smem_bytes()}
-    smem_v2 = _build.load("conv3d_dslice_v2").dpf_conv3d_k3_affine_smem_bytes
-    smem_v2.argtypes = [ctypes.c_int]
-    dynamic.update({("conv3d_dslice_v2", co): smem_v2(co) for co in (32, 64)})
+    def smem(lib, symbol, *args):
+        fn = getattr(_build.load(lib), symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        return fn(*args)
+
+    # (library, kernel, template argument) of each tensor-core instantiation
+    dynamic = {("conv3d_dslice", "conv3d_tc_kernel", 88): smem("conv3d_dslice", "dpf_conv3d_k3_smem_bytes")}
+    dynamic.update({("conv3d_dslice_v2", "conv3d_tc_kernel", co):
+                    smem("conv3d_dslice_v2", "dpf_conv3d_k3_affine_smem_bytes", co) for co in (32, 64)})
+    dynamic.update({("prims_dot", "dot_bf16_kernel", mt): smem("prims_dot", "dpf_batched_dot_smem_bytes", mt)
+                    for mt in (1, 2)})
+    dynamic.update({("deform_conv3d_bwd", "deform_bwd_tc_kernel", cp):
+                    smem("deform_conv3d_bwd", "dpf_deform_conv3d_bwd_tc_smem_bytes") for cp in (40, 64)})
     seen = set()
     for name, r in report.items():
         for f in ptxas_report(r["log"]):
             line = (f"ptxas {name}: {f['function']}: {f.get('registers')} registers, {f.get('static_smem')} bytes "
                     f"static smem, spill stores {f.get('spill_stores')} / loads {f.get('spill_loads')} bytes")
-            if m := re.search(r"conv3d_tc_kernelILi(\d+)E", f["function"]):
-                key = (name, int(m.group(1)))
+            if m := re.search(r"(conv3d_tc_kernel|dot_bf16_kernel|deform_bwd_tc_kernel)ILi(\d+)E", f["function"]):
+                key = (name, m.group(1), int(m.group(2)))
                 seen.add(key)
-                line += f", dynamic smem {dynamic[key]} bytes (N = {key[1]})"
+                line += f", dynamic smem {dynamic[key]} bytes ({key[1]}<{key[2]}>)"
                 if f.get("spill_stores") != 0 or f.get("spill_loads") != 0:
                     fail(f"the tensor-core kernel {f['function']} spills: {f}")
             print(line, flush=True)
@@ -311,7 +323,7 @@ def check_and_time_backward_kernels(torch, err, timing):
     autograd state, so each comparison frees it before the next."""
     from dualpixelface_tpu_torch.tools import cuda_ms
     from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
-    from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_bwd, deform_conv3d_bwd_plain
+    from dualpixelface_tpu_torch.ops.kernels.deform_fused import bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain
     from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin_bwd, fused_softargmin_bwd_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -329,8 +341,8 @@ def check_and_time_backward_kernels(torch, err, timing):
                 got = deform_conv3d_bwd(x, off, w, bias, g, aperture=aperture)
                 ref = deform_conv3d_bwd_plain(x, off, w, bias, g, aperture=aperture)
                 for gname, a, r in zip(("gx", "goff", "gw", "gb"), got, ref):
-                    e = compare(f"K2 deform_conv3d_bwd {gname} Cin={cin} aperture={aperture}", a, r, dname,
-                                BWD_TOL[dname][gname])
+                    e = compare(f"K2 deform_conv3d_bwd [{bwd_route(dtype)}] {gname} Cin={cin} aperture={aperture}",
+                                a, r, dname, BWD_TOL[dname][gname])
                     if dtype == bf16 and aperture:
                         err["K2"] = max(err["K2"], e)
                 del got, ref
@@ -368,12 +380,13 @@ def check_and_time_backward_kernels(torch, err, timing):
 
 
 def check_edge_shapes(torch):
-    """Phase 3c: K5 and T1 at the ragged `EDGE_SHAPES`, Cin 35 and 64, bf16
-    and f32: K5 within `REL_TOL`, T1 (Co 32 and 64, without and with the
-    folded BatchNorm and ReLU) within `bench_dslice_fold.excess_error`'s
-    allowance."""
+    """Phase 3c: K5, T1 and K2 at the ragged `EDGE_SHAPES`, Cin 35 and 64,
+    bf16 and f32: K5 within `REL_TOL`, T1 (Co 32 and 64, without and with
+    the folded BatchNorm and ReLU) within `bench_dslice_fold.excess_error`'s
+    allowance, K2 (both apertures, each route) within `BWD_TOL`."""
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import COS
+    from dualpixelface_tpu_torch.ops.kernels.deform_fused import bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain
     from dualpixelface_tpu_torch.tools import bench_dslice_fold as fold
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -390,6 +403,14 @@ def check_edge_shapes(torch):
                               f"{r['worst_ratio']:.3f}", flush=True)
                         if not r["worst_ratio"] <= 1.0:
                             fail(f"T1 {shape + (cin,)} -> {co} {dname}: kernel disagrees with its plain version")
+                x, off, w, bias, _, _ = kernel_inputs(torch, gen, cin, dtype, shape, on_bound=True)
+                g = torch.randn(shape + (COUT,), generator=gen, device="cuda").to(dtype)
+                for aperture in (True, False):
+                    got = deform_conv3d_bwd(x, off, w, bias, g, aperture=aperture)
+                    ref = deform_conv3d_bwd_plain(x, off, w, bias, g, aperture=aperture)
+                    for gname, a, r in zip(("gx", "goff", "gw", "gb"), got, ref):
+                        compare(f"K2 deform_conv3d_bwd [{bwd_route(dtype)}] {gname} {shape + (cin,)} "
+                                f"aperture={aperture}", a, r, dname, BWD_TOL[dname][gname])
 
 
 def tools_phase(torch):
@@ -400,13 +421,14 @@ def tools_phase(torch):
     after: those counts are the T rows' `launches`.
 
     T2 and T3 must agree bit for bit (the same adds in the same order and
-    dtype); T4 within 1e-4 of max(1, max|plain|) (f32 sums of 2240 exact
-    products in another order); T1 at the four stride-1 hourglass sites in
+    dtype); T4 within 1e-4 of max(1, max|plain|) (f32 sums of up to 2248
+    exact products in another order), at the tool's runs and, first, at
+    ragged m and k with G = 64; T1 at the four stride-1 hourglass sites in
     f32 and bf16, without and with the folded BatchNorm and ReLU, within
     1e-4 of max(1, max|plain|) for the sums' order plus, in bf16, one ulp of
     the output (both round one f32 value once). Each tool's inputs are
     allocated once per shape and freed before the next."""
-    from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualpixelface_tpu_torch.ops.kernels import launch_counts, prims, reset_launch_counts
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import conv3d_dslice_v2_plain
     from dualpixelface_tpu_torch.tools import bench_dslice_fold as fold
     from dualpixelface_tpu_torch.tools import bench_vpu_prims as vpu
@@ -425,6 +447,16 @@ def tools_phase(torch):
         if m["library_ms"] is not None:
             row["library_ms"] = (row["library_ms"] or 0.0) + m["library_ms"]
         row["runs"].append(m)
+
+    # T4 at ragged widths first (k * element size stays a multiple of 16
+    # bytes, the kernel's granule); these launches precede the counted runs
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k in ((m, k) for m in (1, 33, 130) for k in (8, 72, 2248)):
+            a = torch.randn((64, m, k), generator=gen, device="cuda").to(dtype)
+            b = torch.randn((64, k, prims.DOT_N), generator=gen, device="cuda").to(dtype)
+            rows["T4"]["err"] = max(rows["T4"]["err"], compare(
+                f"T4 batched_dot [64, {m}, {k}] x [64, {k}, {prims.DOT_N}]", prims.batched_dot(a, b),
+                prims.batched_dot_plain(a, b), str(dtype).removeprefix("torch."), 1e-4))
 
     for run in vpu.RUNS:
         inputs = run.inputs(gen)

@@ -2,7 +2,8 @@
 // implicit GEMM on Hopper's warpgroup MMA (wgmma m64nNk16, bf16 in, f32
 // accumulate), with its A tile gathered by cp.async. K1 and K2, whose
 // contractions are the same [voxels x 27 C] x [27 C x Co] product over a
-// gathered A, can take the B ring, the descriptors and the MMA as they are.
+// gathered A, can take the B ring, the descriptors and the MMA as they are
+// (K2 and T4 do; their TMA ring is tma.cuh's).
 //
 // The product: out[m][n] = sum_k A[m][k] B[n][k], m a voxel of x
 // [B, D, H, W, C] (NDHWC, C % 8 == 0), k = tap * C + c over the 27 taps
@@ -85,36 +86,55 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d += A (64 x 16, descriptor a) * B^T (N x 16, descriptor b); both K-major.
-template <int N> struct Wgmma;
-template <> struct Wgmma<32> {
+// d += A (64 x 16, descriptor a) * B (16 x N, descriptor b). Each operand
+// is K-major (A [64][K], B [N][K]; flag 0) or MN-major (A [K][64], B [K][N],
+// M or N contiguous; TA or TB = 1: the instruction's transpose flags, which
+// 16-bit types take). An MN-major operand in the 128-byte swizzle is rows
+// of 64 M or N values, one 128-byte row per k: `desc` names it too (1024
+// bytes between 8-k-row groups), and its k slice kk starts kk * 16 rows
+// (2048 bytes) in.
+template <int N, int TA = 0, int TB = 0> struct Wgmma;
+template <int TA, int TB> struct Wgmma<32, TA, TB> {
   static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
   }
 };
-template <> struct Wgmma<64> {
+template <int TA, int TB> struct Wgmma<40, TA, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[20], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, %24, %23;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
+  }
+};
+template <int TA, int TB> struct Wgmma<64, TA, TB> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
   }
 };
-template <> struct Wgmma<88> {
+template <int TA, int TB> struct Wgmma<88, TA, TB> {
   static __device__ __forceinline__ void mma(float (&d)[44], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %46, 0;\n"
@@ -122,14 +142,14 @@ template <> struct Wgmma<88> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43"
-        "}, %44, %45, p, 1, 1, 0, 0;\n}\n"
+        "}, %44, %45, p, 1, 1, %48, %47;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
   }
 };
 

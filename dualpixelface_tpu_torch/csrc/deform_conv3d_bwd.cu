@@ -19,23 +19,54 @@
 //
 // Bound on the H100: operations. At the train path's shapes (B = 2,
 // [2, 4, 192, 144, Cin], Cin 35 and 64) the two contractions (gcols and gw)
-// are twice K1's, ~2 x 2 x 221184 x 27 x Cin x 64 FLOP, against ~100 MB
-// that must move in bf16. Design: the TPU ran the forward's one-hot
-// matmuls in reverse; the card has a cheap gather and f32 atomics, so this
-// is a gather/scatter. A block owns one tap and a strided share of the
-// voxel tiles (32 voxels each); per tile it recomputes the 8 corner indices,
-// weights and weight derivatives of its voxels (as K1 does), forms gcols
-// with a small SIMT product against the tap's weight rows kept in shared
-// memory, then one warp per voxel walks the channels (neighbouring lanes on
-// neighbouring channels, so loads and atomics coalesce): it scatters gx with
-// f32 atomicAdd into an f32 buffer, reduces the three offset gradients with
-// warp shuffles, and stores the rounded samples for gw. gw accumulates in
-// f32 registers per block over its tiles, is written as per-block partial
-// sums, and a second pass adds the partials (no atomics on gw, no bf16
-// atomics anywhere). A third pass casts gx to bf16 when the input is bf16.
-// SIMT f32 FMA and the atomics cap it well below the bound; tensor cores
-// are later work.
+// are twice K1's, ~2 x 2 x 221184 x 27 x Cin x 64 FLOP on the tensor cores,
+// beside ~31 GFLOP of f32 gather work (the samples, their derivatives, the
+// gx scatter) on the CUDA cores, against ~290 MB that must move in bf16.
+// The TPU ran the forward's one-hot matmuls in reverse; the card has a cheap
+// gather and f32 atomics, so this is a gather/scatter. Two routes:
+//
+// bf16 (the train path): `deform_bwd_tc_kernel`, the contractions on the
+// tensor cores. A block of two warpgroups owns one tap and a strided share
+// of the voxel tiles (BM = 128 voxels each; blocks of the same share walk
+// the same tiles, so the 27 taps' reads of g and offset meet in L2). Per
+// tile: the g tile [128 voxels x 64] arrives by TMA (tma.cuh; two buffers,
+// the next tile's load in flight while this one is worked), beside the
+// tap's weight rows [CP x 64], loaded once per block. Warpgroup 0 forms
+// gcols = g . W_tap^T with `wgmma` m64nCPk16 (A the g tile, K-major as it
+// lies; B the weight rows, K-major) and stages it rounded to bf16 (the
+// rounding point of the plain version and of the TPU kernel's `gsb`),
+// while warpgroup 1 computes the 8 corners of each voxel (one thread per
+// voxel). Then all 256 threads gather and scatter: CP / 4 lanes per voxel,
+// 4 channels a lane (x padded to CP = 40 channels for Cin <= 40, so a
+// voxel-corner row is 80 or 128 aligned bytes), per corner one 8-byte load
+// of x, the sample and its three derivative sums, and one 4-channel f32
+// vector reduction into gx (`atomicAdd` on a float4: a quarter of the
+// atomic instructions of one per channel, the same bytes; a voxel's 8
+// corner loads are issued before any is used); the offset
+// gradients are summed over the voxel's lanes with shuffles and stored
+// rounded. The samples, rounded to bf16, go to shared memory as [voxel]
+// [channel] rows (one 8-byte store a lane, the 128-byte swizzle), and
+// warpgroup 0 adds gw += cols^T . g with `wgmma` m64n64k16, both operands
+// MN-major over the voxels through the transpose flags (A the samples, B
+// the same g tile that fed gcols). Each tile's m64n64 product is added
+// into the block's f32 gw partial in shared memory (so no accumulator holds
+// registers through the gather), written out once as a per-block partial
+// sum (no atomics on gw).
+//
+// f32 (the checks' dtype): `deform_bwd_kernel`, the SIMT design: a block
+// owns one tap and a strided share of 32-voxel tiles; per tile it
+// recomputes the 8 corner indices, weights and weight derivatives of its
+// voxels (as K1 does), forms gcols with a small SIMT product against the
+// tap's weight rows kept in shared memory, then one warp per voxel walks the
+// channels: it scatters gx with f32 atomicAdd, reduces the three offset
+// gradients with warp shuffles, and stores the samples for gw, accumulated
+// by a second SIMT product into per-block partial sums.
+//
+// Both: a second pass adds the gw partials, and one casts gx (f32) to the
+// input dtype once.
 #include "common.cuh"
+#include "conv_tc.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -44,9 +75,9 @@ using namespace dpf;
 constexpr float EPS = 1.0f / 1024.0f;
 constexpr float AP = 3.0f;
 constexpr int CO = 64;     // K1's output channels
-constexpr int CMAX = 64;   // largest Cin the kernel takes
-constexpr int TV = 32;     // voxels per tile
-constexpr int NT = 256;    // threads per block (8 warps)
+constexpr int CMAX = 64;   // largest Cin the kernels take
+constexpr int TV = 32;     // SIMT route: voxels per tile
+constexpr int NT = 256;    // threads per block (8 warps), both routes
 
 // d/dpos of the aperture clamp min(max(pos, lo), hi).
 __device__ __forceinline__ float clamp_grad(float pos, float lo, float hi) {
@@ -55,6 +86,60 @@ __device__ __forceinline__ float clamp_grad(float pos, float lo, float hi) {
   return 0.0f;
 }
 
+// The 8 trilinear corners q of voxel m's sample at `tap`, into column `slot`
+// of the [8][S] shared arrays: flat voxel index (-1 when outside the volume
+// or m >= M), weight, and the weight's derivatives along D, H, W (H and W
+// times the aperture clamp's gradient).
+template <typename T, int S>
+__device__ __forceinline__ void voxel_corners(const T* __restrict__ offset, int m, int M, int tap, int D, int H,
+                                              int W, int aperture, int slot, int (*cidx)[S], float (*cw)[S],
+                                              float (*cdd)[S], float (*cdh)[S], float (*cdw)[S]) {
+  const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+  const bool valid = m < M;
+  float d0 = 0.f, h0 = 0.f, w0 = 0.f, fd = 0.f, fh = 0.f, fw = 0.f, gh = 0.f, gwt = 0.f;
+  int b = 0;
+  if (valid) {
+    int t = m;
+    const int w = t % W; t /= W;
+    const int h = t % H; t /= H;
+    const int d = t % D;
+    b = t / D;
+    const T* op = offset + (size_t)m * 81 + tap * 3;
+    const float pd = (float)(d - 1 + kd) + to_f32(op[0]);
+    float ph = (float)(h - 1 + kh) + to_f32(op[1]);
+    float pw = (float)(w - 1 + kw) + to_f32(op[2]);
+    gh = 1.0f;
+    gwt = 1.0f;
+    if (aperture) {
+      const float hlo = (float)h - AP, hhi = (float)h + AP + 1.0f - EPS;
+      const float wlo = (float)w - AP, whi = (float)w + AP + 1.0f - EPS;
+      gh = clamp_grad(ph, hlo, hhi);
+      gwt = clamp_grad(pw, wlo, whi);
+      ph = fminf(fmaxf(ph, hlo), hhi);
+      pw = fminf(fmaxf(pw, wlo), whi);
+    }
+    d0 = floorf(pd); h0 = floorf(ph); w0 = floorf(pw);
+    fd = pd - d0; fh = ph - h0; fw = pw - w0;
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int cz = q >> 2, cy = (q >> 1) & 1, cx = q & 1;
+    const float zi = d0 + cz, yi = h0 + cy, xi = w0 + cx;
+    const bool ok = valid && zi >= 0.0f && zi <= (float)(D - 1) && yi >= 0.0f && yi <= (float)(H - 1) &&
+                    xi >= 0.0f && xi <= (float)(W - 1);
+    const float wz = cz ? fd : 1.0f - fd;
+    const float wy = cy ? fh : 1.0f - fh;
+    const float wx = cx ? fw : 1.0f - fw;
+    const float sz = cz ? 1.0f : -1.0f, sy = cy ? 1.0f : -1.0f, sx = cx ? 1.0f : -1.0f;
+    cidx[q][slot] = ok ? ((b * D + (int)zi) * H + (int)yi) * W + (int)xi : -1;
+    cw[q][slot] = ok ? (wz * wy) * wx : 0.0f;
+    cdd[q][slot] = ok ? sz * wy * wx : 0.0f;
+    cdh[q][slot] = ok ? wz * sy * wx * gh : 0.0f;
+    cdw[q][slot] = ok ? wz * wy * sx * gwt : 0.0f;
+  }
+}
+
+// ---------------------------------------------------------------- f32: SIMT
 template <typename T>
 __global__ void __launch_bounds__(NT)
 deform_bwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
@@ -73,7 +158,6 @@ deform_bwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid % 16, ty = tid / 16;
   const int M = B * D * H * W;
-  const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
 
   for (int e = tid; e < CMAX * CO; e += NT) {
     const int c = e / CO, n = e - c * CO;
@@ -91,51 +175,7 @@ deform_bwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
     const int m0 = tile * TV;
     __syncthreads();  // the previous tile's readers are done
 
-    if (tid < TV) {
-      const int m = m0 + tid;
-      bool valid = m < M;
-      float d0 = 0.f, h0 = 0.f, w0 = 0.f, fd = 0.f, fh = 0.f, fw = 0.f, gh = 0.f, gwt = 0.f;
-      int b = 0, d = 0, h = 0, w = 0;
-      if (valid) {
-        int t = m;
-        w = t % W; t /= W;
-        h = t % H; t /= H;
-        d = t % D;
-        b = t / D;
-        const T* op = offset + (size_t)m * 81 + tap * 3;
-        const float pd = (float)(d - 1 + kd) + to_f32(op[0]);
-        float ph = (float)(h - 1 + kh) + to_f32(op[1]);
-        float pw = (float)(w - 1 + kw) + to_f32(op[2]);
-        gh = 1.0f;
-        gwt = 1.0f;
-        if (aperture) {
-          const float hlo = (float)h - AP, hhi = (float)h + AP + 1.0f - EPS;
-          const float wlo = (float)w - AP, whi = (float)w + AP + 1.0f - EPS;
-          gh = clamp_grad(ph, hlo, hhi);
-          gwt = clamp_grad(pw, wlo, whi);
-          ph = fminf(fmaxf(ph, hlo), hhi);
-          pw = fminf(fmaxf(pw, wlo), whi);
-        }
-        d0 = floorf(pd); h0 = floorf(ph); w0 = floorf(pw);
-        fd = pd - d0; fh = ph - h0; fw = pw - w0;
-      }
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int cz = q >> 2, cy = (q >> 1) & 1, cx = q & 1;
-        const float zi = d0 + cz, yi = h0 + cy, xi = w0 + cx;
-        const bool ok = valid && zi >= 0.0f && zi <= (float)(D - 1) && yi >= 0.0f &&
-                        yi <= (float)(H - 1) && xi >= 0.0f && xi <= (float)(W - 1);
-        const float wz = cz ? fd : 1.0f - fd;
-        const float wy = cy ? fh : 1.0f - fh;
-        const float wx = cx ? fw : 1.0f - fw;
-        const float sz = cz ? 1.0f : -1.0f, sy = cy ? 1.0f : -1.0f, sx = cx ? 1.0f : -1.0f;
-        cidx[q][tid] = ok ? ((b * D + (int)zi) * H + (int)yi) * W + (int)xi : -1;
-        cw[q][tid] = ok ? (wz * wy) * wx : 0.0f;
-        cdd[q][tid] = ok ? sz * wy * wx : 0.0f;
-        cdh[q][tid] = ok ? wz * sy * wx * gh : 0.0f;
-        cdw[q][tid] = ok ? wz * wy * sx * gwt : 0.0f;
-      }
-    }
+    if (tid < TV) voxel_corners<T, TV>(offset, m0 + tid, M, tap, D, H, W, aperture, tid, cidx, cw, cdd, cdh, cdw);
     for (int e = tid; e < TV * CO; e += NT) {
       const int r = e / CO, n = e - r * CO;
       const int m = m0 + r;
@@ -249,42 +289,310 @@ __global__ void reduce_gw_kernel(const float* __restrict__ gwp, T* __restrict__ 
   gw[k] = from_f32<T>(s);
 }
 
-template <typename T>
-int launch(cudaStream_t s, const void* x, const void* offset, const void* wmat, const void* g,
-           float* gx32, void* goff, float* gwp, void* gw, int B, int D, int H, int W, int C,
-           int aperture, int nsplit) {
-  deform_bwd_kernel<T><<<dim3((unsigned)nsplit, 27), NT, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(offset), static_cast<const T*>(wmat),
-      static_cast<const T*>(g), gx32, static_cast<T*>(goff), gwp, B, D, H, W, C, aperture, nsplit);
-  int rc = (int)cudaGetLastError();
+// ------------------------------------------------------- bf16: tensor cores
+constexpr int TBM = 128;                 // voxels per tile: two m64 row tiles of gcols
+constexpr int G_TILE = TBM * CO * 2;     // a g tile, bf16 [128][64]: 128-byte rows
+constexpr int W_SLOT = CMAX * CO * 2;    // the tap's weight rows, bf16 [CP][64]
+constexpr int COLS_BYTES = TBM * 128;    // cols bf16 [128 voxels][64 channels]: 128-byte rows
+
+// Shared memory of the tensor-core block (offsets from a 1024-aligned base).
+struct TcSmem {
+  static constexpr int g = 0;                          // two g tiles
+  static constexpr int w = g + 2 * G_TILE;             // the tap's weight rows
+  static constexpr int cols = w + W_SLOT;              // cols, the A of gw (MN-major)
+  static constexpr int gcols = cols + COLS_BYTES;      // gcols bf16 [128][CP]
+  static constexpr int corners = gcols + TBM * CMAX * 2;  // idx, weight, 3 derivatives [8][128]
+  static constexpr int gw = corners + 5 * 8 * TBM * 4;  // the gw partial, f32 [64 channels][64]
+  static constexpr int bars = gw + CMAX * CO * 4;      // full[2], weights
+  static constexpr int bytes = bars + 3 * 8 + 1024;
+};
+
+// One 4-channel f32 reduction into global memory (red.global.add.v4.f32).
+__device__ __forceinline__ void red_add4(float* p, float a, float b, float c, float d) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+}
+
+// CP: x's padded channels (40 or 64), the gcols wgmma's N. x [M, CP], wpk
+// [27, CP, 64] (zero rows past C), gx32 [M, CP] (zeroed), gwp [nsplit, 27 C, 64].
+template <int CP>
+__global__ void __launch_bounds__(NT, 2)
+deform_bwd_tc_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap wmap,
+                     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ offset,
+                     float* __restrict__ gx32, __nv_bfloat16* __restrict__ goff, float* __restrict__ gwp, int M,
+                     int D, int H, int W, int C, int aperture, int nsplit) {
+  constexpr int GS = CP / 4;        // lanes per voxel, 4 channels each
+  constexpr int GPW = 32 / GS;      // voxels a warp works at once
+  constexpr int NGROUPS = (NT / 32) * GPW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* gcs = reinterpret_cast<__nv_bfloat16*>(sm + TcSmem::gcols);
+  int (*cidx)[TBM] = reinterpret_cast<int (*)[TBM]>(sm + TcSmem::corners);
+  float (*cw)[TBM] = reinterpret_cast<float (*)[TBM]>(sm + TcSmem::corners + 8 * TBM * 4);
+  float (*cdd)[TBM] = cw + 8;
+  float (*cdh)[TBM] = cw + 16;
+  float (*cdw)[TBM] = cw + 24;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + TcSmem::bars);
+  uint64_t* wbar = full + 2;
+
+  const int tap = blockIdx.x, split = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (M + TBM - 1) / TBM;
+  const uint32_t base = tc::smem_addr(sm);
+
+  if (tid == 0) {
+    tma::mbar_init(&full[0], 1);
+    tma::mbar_init(&full[1], 1);
+    tma::mbar_init(wbar, 1);
+    tma::fence_mbar_init();
+  }
+  // cols' channels past CP stay zero (the gw wgmma's M is 64); the gw
+  // partial starts at zero
+  for (int e = tid; e < COLS_BYTES / 16; e += NT) reinterpret_cast<uint4*>(sm + TcSmem::cols)[e] = make_uint4(0, 0, 0, 0);
+  for (int e = tid; e < CMAX * CO / 4; e += NT) reinterpret_cast<float4*>(sm + TcSmem::gw)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  tc::fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    tma::mbar_expect_tx(wbar, CP * CO * 2);
+    tma::load_2d(sm + TcSmem::w, &wmap, wbar, 0, tap * CP);
+    if (split < ntiles) {
+      tma::mbar_expect_tx(&full[0], G_TILE);
+      tma::load_2d(sm + TcSmem::g, &gmap, &full[0], 0, split * TBM);
+    }
+  }
+
+  int i = 0;
+  for (int tile = split; tile < ntiles; tile += nsplit, ++i) {
+    const int buf = i & 1, m0 = tile * TBM;
+    const uint32_t gt = base + TcSmem::g + buf * G_TILE;
+    if (tid == 0 && tile + nsplit < ntiles) {  // the next tile's g, into the buffer tile i - 1 used
+      tma::mbar_expect_tx(&full[buf ^ 1], G_TILE);
+      tma::load_2d(sm + TcSmem::g + (buf ^ 1) * G_TILE, &gmap, &full[buf ^ 1], 0, (tile + nsplit) * TBM);
+    }
+    if (tid < 128) {
+      // gcols = g . W_tap^T on the tensor cores, rounded to bf16
+      float accg[2][CP / 2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < CP / 2; ++e) accg[h][e] = 0.0f;
+      tma::mbar_wait(wbar, 0);
+      tma::mbar_wait(&full[buf], (i >> 1) & 1);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CO / 16; ++kk) {
+        const uint64_t db = tc::desc(base + TcSmem::w + kk * 32);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) tc::Wgmma<CP>::mma(accg[h], tc::desc(gt + h * 64 * 128 + kk * 32), db);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < CP / 2; e += 2) {
+          const int r = 64 * h + 16 * warp + (lane >> 2) + 8 * ((e >> 1) & 1);
+          const int n = 8 * (e >> 2) + 2 * (lane & 3);
+          *reinterpret_cast<__nv_bfloat162*>(&gcs[r * CP + n]) = __floats2bfloat162_rn(accg[h][e], accg[h][e + 1]);
+        }
+    } else {
+      const int v = tid - 128;
+      voxel_corners<__nv_bfloat16, TBM>(offset, m0 + v, M, tap, D, H, W, aperture, v, cidx, cw, cdd, cdh, cdw);
+    }
+    __syncthreads();
+
+    // gather / scatter: lanes j of a group take channels 4 j .. 4 j + 3 of
+    // one voxel; the loop runs alike in every lane of a warp (the offset
+    // gradients are summed over the group with shuffles)
+    const int grp = lane / GS, j = lane - grp * GS, c = 4 * j;
+    for (int v0 = warp * GPW; v0 < TBM; v0 += NGROUPS) {
+      const int v = v0 + grp;
+      const bool on = grp < GPW && v < TBM;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, pd = 0.f, ph = 0.f, pw = 0.f;
+      if (on) {
+        const uint2 gr = *reinterpret_cast<const uint2*>(&gcs[v * CP + c]);
+        const float2 g01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gr.x));
+        const float2 g23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gr.y));
+        // the 8 corners' loads first, all in flight at once
+        int ids[8];
+        uint2 xrs[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          ids[q] = cidx[q][v];
+          xrs[q] = ids[q] < 0 ? make_uint2(0u, 0u)
+                              : __ldg(reinterpret_cast<const uint2*>(x + (size_t)ids[q] * CP + c));
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int id = ids[q];
+          if (id < 0) continue;
+          const uint2 xr = xrs[q];
+          const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.x));
+          const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr.y));
+          const float wq = cw[q][v];
+          s0 += wq * x01.x;
+          s1 += wq * x01.y;
+          s2 += wq * x23.x;
+          s3 += wq * x23.y;
+          const float t = g01.x * x01.x + g01.y * x01.y + g23.x * x23.x + g23.y * x23.y;
+          pd += cdd[q][v] * t;
+          ph += cdh[q][v] * t;
+          pw += cdw[q][v] * t;
+          if (wq != 0.0f && c < C) red_add4(gx32 + (size_t)id * CP + c, wq * g01.x, wq * g01.y, wq * g23.x, wq * g23.y);
+        }
+        // cols [v][c .. c + 3], rounded to bf16: one 8-byte store
+        const __nv_bfloat162 c01 = __floats2bfloat162_rn(s0, s1), c23 = __floats2bfloat162_rn(s2, s3);
+        uint2 packed;
+        packed.x = *reinterpret_cast<const uint32_t*>(&c01);
+        packed.y = *reinterpret_cast<const uint32_t*>(&c23);
+        *reinterpret_cast<uint2*>(sm + TcSmem::cols + tc::swizzle(v, c >> 3) + (c & 7) * 2) = packed;
+      }
+      // the group's sum lands in its lane 0: a tree over GS <= 16 lanes whose
+      // first step folds the lanes past the largest power of two below GS
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        const float td = __shfl_down_sync(0xffffffffu, pd, off);
+        const float th = __shfl_down_sync(0xffffffffu, ph, off);
+        const float tw = __shfl_down_sync(0xffffffffu, pw, off);
+        if (j + off < GS) {
+          pd += td;
+          ph += th;
+          pw += tw;
+        }
+      }
+      if (on && j == 0 && m0 + v < M) {
+        __nv_bfloat16* op = goff + (size_t)(m0 + v) * 81 + tap * 3;
+        op[0] = __float2bfloat16_rn(pd);
+        op[1] = __float2bfloat16_rn(ph);
+        op[2] = __float2bfloat16_rn(pw);
+      }
+    }
+    tc::fence_proxy_async();  // cols, written by the generic proxy, is read by wgmma
+    __syncthreads();
+
+    if (tid < 128) {
+      // gw += cols^T . g: A and B both MN-major over the tile's voxels (the
+      // transpose flags), cols [v][c] and the g tile [v][n]; the m64n64
+      // accumulators are added into the block's f32 partial in shared
+      // memory, so they hold no registers through the gather
+      float accw[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) accw[e] = 0.0f;
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TBM / 16; ++kk)
+        tc::Wgmma<64, 1, 1>::mma(accw, tc::desc(base + TcSmem::cols + kk * 2048), tc::desc(gt + kk * 2048));
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      float* gws = reinterpret_cast<float*>(sm + TcSmem::gw);
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int cc = 16 * warp + (lane >> 2) + 8 * ((e >> 1) & 1);
+        const int n = 8 * (e >> 2) + 2 * (lane & 3);
+        float2* a = reinterpret_cast<float2*>(&gws[cc * CO + n]);
+        const float2 old = *a;
+        *a = make_float2(old.x + accw[e], old.y + accw[e + 1]);
+      }
+    }
+    __syncthreads();  // this tile's g buffer, cols, gcols and corners are free
+  }
+
+  // the block's gw partial, rows c < C, in 16-byte stores (the loop's last
+  // barrier ordered the partial's last update before these reads)
+  float4* part = reinterpret_cast<float4*>(gwp + ((size_t)split * 27 + tap) * C * CO);
+  for (int e = tid; e < C * CO / 4; e += NT) part[e] = reinterpret_cast<const float4*>(sm + TcSmem::gw)[e];
+}
+
+// gx [M, C] = bf16(gx32 [M, CP]): the one rounding of x's gradient.
+__global__ void cast_depad_kernel(const float* __restrict__ gx32, __nv_bfloat16* __restrict__ gx, long long n,
+                                  int C, int CP) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long m = i / C;
+  gx[i] = __float2bfloat16_rn(gx32[m * CP + (i - m * C)]);
+}
+
+template <int CP>
+int launch_tc(cudaStream_t s, const void* x, const void* offset, const void* wpk, const void* g, float* gx32,
+              void* goff, float* gwp, int M, int D, int H, int W, int C, int aperture, int nsplit) {
+  CUtensorMap gm, wm;
+  const uint64_t gdims[2] = {(uint64_t)CO, (uint64_t)M}, wdims[2] = {(uint64_t)CO, (uint64_t)27 * CP};
+  const uint64_t stride[1] = {(uint64_t)CO * 2};
+  const uint32_t gbox[2] = {CO, TBM}, wbox[2] = {CO, CP};
+  int rc = tma::encode(&gm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g, gdims, stride, gbox);
   if (rc != 0) return rc;
+  rc = tma::encode(&wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wpk, wdims, stride, wbox);
+  if (rc != 0) return rc;
+  auto kernel = deform_bwd_tc_kernel<CP>;
+  static const cudaError_t opted_in =  // once per instantiation and process (one card)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TcSmem::bytes);
+  if (opted_in != cudaSuccess) return (int)opted_in;
+  kernel<<<dim3(27, (unsigned)nsplit), NT, TcSmem::bytes, s>>>(
+      gm, wm, static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(offset), gx32,
+      static_cast<__nv_bfloat16*>(goff), gwp, M, D, H, W, C, aperture, nsplit);
+  return (int)cudaGetLastError();
+}
+
+int reduce_gw(cudaStream_t s, const float* gwp, void* gw, int C, int nsplit, bool bf16) {
   const int n = 27 * C * CO;
-  reduce_gw_kernel<T><<<(n + 255) / 256, 256, 0, s>>>(gwp, static_cast<T*>(gw), n, nsplit);
+  if (bf16)
+    reduce_gw_kernel<__nv_bfloat16><<<(n + 255) / 256, 256, 0, s>>>(gwp, static_cast<__nv_bfloat16*>(gw), n, nsplit);
+  else
+    reduce_gw_kernel<float><<<(n + 255) / 256, 256, 0, s>>>(gwp, static_cast<float*>(gw), n, nsplit);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x [B, D, H, W, C] (C <= 64), offset [B, D, H, W, 81], wmat [27*C, CO], g
-// [B, D, H, W, CO]; contiguous, one dtype (is_bf16 selects bf16, else f32).
-// Scratch: gx32 f32 [B*D*H*W*C] (zeroed here), gwp f32 [nsplit, 27*C, CO].
-// Outputs: gx [B, D, H, W, C] (for f32 pass gx32 itself), goff like
-// offset, gw [27*C, CO], all in the input dtype. Returns
-// cudaErrorInvalidValue for Co != CO, C > 64 or nsplit < 1, else the first
-// launch error.
-extern "C" int dpf_deform_conv3d_bwd(const void* x, const void* offset, const void* wmat,
-                                     const void* g, float* gx32, void* gx, void* goff, float* gwp,
-                                     void* gw, int B, int D, int H, int W, int C, int Co,
-                                     int nsplit, int aperture, int is_bf16, void* stream) {
+// f32 route (the SIMT kernel). x [B, D, H, W, C] (C <= 64), offset
+// [B, D, H, W, 81], wmat [27*C, CO], g [B, D, H, W, CO]; f32, contiguous.
+// Scratch: gwp f32 [nsplit, 27*C, CO]. Outputs: gx32 [B, D, H, W, C]
+// (zeroed here), goff like offset, gw [27*C, CO]. Returns
+// cudaErrorInvalidValue for Co != CO, C outside 1..64 or nsplit < 1, else
+// the first launch error.
+extern "C" int dpf_deform_conv3d_bwd(const void* x, const void* offset, const void* wmat, const void* g,
+                                     float* gx32, void* goff, float* gwp, void* gw, int B, int D, int H,
+                                     int W, int C, int Co, int nsplit, int aperture, void* stream) {
   if (Co != CO || C < 1 || C > CMAX || nsplit < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nx = (long long)B * D * H * W * C;
   int rc = (int)cudaMemsetAsync(gx32, 0, (size_t)nx * sizeof(float), s);
   if (rc != 0) return rc;
-  rc = is_bf16 ? launch<__nv_bfloat16>(s, x, offset, wmat, g, gx32, goff, gwp, gw, B, D, H, W, C,
-                                       aperture, nsplit)
-               : launch<float>(s, x, offset, wmat, g, gx32, goff, gwp, gw, B, D, H, W, C,
-                               aperture, nsplit);
-  if (rc != 0 || !is_bf16) return rc;
-  return dpf::cast_bf16(gx32, gx, nx, s);
+  deform_bwd_kernel<float><<<dim3((unsigned)nsplit, 27), NT, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(offset), static_cast<const float*>(wmat),
+      static_cast<const float*>(g), gx32, static_cast<float*>(goff), gwp, B, D, H, W, C, aperture, nsplit);
+  rc = (int)cudaGetLastError();
+  return rc != 0 ? rc : reduce_gw(s, gwp, gw, C, nsplit, false);
 }
+
+// bf16 route (the tensor-core kernel). xp [B, D, H, W, CP] (x padded with
+// zero channels to CP = 40 or 64), offset [B, D, H, W, 81], wpk [27, CP, CO]
+// (the tap's weight rows, zero past C), g [B, D, H, W, CO]; bf16,
+// contiguous, 16-byte aligned. Scratch: gx32 f32 [B, D, H, W, CP] (zeroed
+// here), gwp f32 [nsplit, 27*C, CO]. Outputs: gx [B, D, H, W, C], goff like
+// offset, gw [27*C, CO], bf16. Returns cudaErrorInvalidValue for Co != CO,
+// CP not 40 or 64, C outside 1..CP, nsplit outside 1..ceil(M / 128) or a
+// misaligned pointer,
+// else the first error of the tensor maps' encoding or a launch.
+extern "C" int dpf_deform_conv3d_bwd_tc(const void* xp, const void* offset, const void* wpk, const void* g,
+                                        float* gx32, void* gx, void* goff, float* gwp, void* gw, int B, int D,
+                                        int H, int W, int C, int CP, int Co, int nsplit, int aperture,
+                                        void* stream) {
+  const int M = B * D * H * W;
+  if (Co != CO || (CP != 40 && CP != 64) || C < 1 || C > CP || M < 1 || nsplit < 1 ||
+      nsplit > (M + TBM - 1) / TBM || ((uintptr_t)xp | (uintptr_t)wpk | (uintptr_t)g | (uintptr_t)gx32) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = (int)cudaMemsetAsync(gx32, 0, (size_t)M * CP * sizeof(float), s);
+  if (rc != 0) return rc;
+  rc = CP == 40 ? launch_tc<40>(s, xp, offset, wpk, g, gx32, goff, gwp, M, D, H, W, C, aperture, nsplit)
+                : launch_tc<64>(s, xp, offset, wpk, g, gx32, goff, gwp, M, D, H, W, C, aperture, nsplit);
+  if (rc != 0) return rc;
+  rc = reduce_gw(s, gwp, gw, C, nsplit, true);
+  if (rc != 0) return rc;
+  const long long n = (long long)M * C;
+  cast_depad_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(gx32, static_cast<__nv_bfloat16*>(gx), n, C, CP);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the tensor-core block, for the build report.
+extern "C" int dpf_deform_conv3d_bwd_tc_smem_bytes() { return TcSmem::bytes; }

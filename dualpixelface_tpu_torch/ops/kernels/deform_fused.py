@@ -15,7 +15,10 @@ serves both semantics through `aperture`:
   * aperture=False: unbounded, the reference's sampling (`packed8`).
 
 `deform_conv3d_fused` is differentiable: its backward recomputes from the
-saved inputs, as the JAX custom VJP does, through `deform_conv3d_bwd`.
+saved inputs, as the JAX custom VJP does, through `deform_conv3d_bwd`, which
+takes one of two routes by dtype (`bwd_route`): bf16 (the train path) on
+the tensor cores, with x and the weight first laid out for them
+(`pack_deform_bwd`), f32 on the SIMT kernel.
 Each wrapper takes the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; anything else raises, as does a CUDA call with
 other than CO output channels (the one width the kernels are built for).
@@ -25,6 +28,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -35,6 +39,7 @@ EPS = 1.0 / 1024.0
 KTAPS = 27
 CO = 64              # the kernel's output channels: the ANM deform convs', its only caller
 CIN_MAX = 64         # K2 keeps a tap's weight rows for up to 64 input channels in shared memory
+CP_WIDTHS = (40, 64)  # K2's tensor-core route: x's channels padded to the first that holds them
 
 
 def clamp_positions(pos: torch.Tensor, out_coord: torch.Tensor) -> torch.Tensor:
@@ -108,6 +113,49 @@ def deform_conv3d_bwd_plain(x, offset, weight, bias, g, aperture=False):
         out = deform_conv3d_plain(*leaves[:3], leaves[3] if bias is not None else None, aperture)
         grads = torch.autograd.grad(out, leaves, g)
     return tuple(grads) + ((None,) if bias is None else ())
+
+
+def bwd_route(dtype: torch.dtype) -> str:
+    """K2's kernel for a dtype: "tensor_cores" (bf16: `wgmma` contractions,
+    the train path) or "simt" (f32: the checks' exact-f32 sums). Both take
+    either aperture."""
+    if dtype == torch.bfloat16:
+        return "tensor_cores"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"deform_conv3d_bwd: no kernel for dtype {dtype}")
+
+
+def bwd_plan(shape, dtype: torch.dtype, sms: int) -> tuple[str, int, int]:
+    """K2's launch for x of `shape` [B, D, H, W, C] and `dtype` on a card of
+    `sms` SMs: its route, the channels it reads x with (C padded to CP on
+    the tensor-core route) and the number of per-block gw partial sums
+    (blocks per tap, each owning a share of the voxel tiles: on the SIMT
+    route up to 32 shares of 32-voxel tiles; on the tensor-core route about
+    eight blocks per SM in all, four waves of two, over 128-voxel tiles)."""
+    route = bwd_route(dtype)
+    c, m = shape[-1], math.prod(shape[:-1])
+    if route == "simt":
+        return route, c, max(1, min(32, -(-m // 4096)))
+    return route, _padded_channels(c), max(1, min(-(-m // 128), round(8 * sms / KTAPS)))
+
+
+def _padded_channels(c: int) -> int:
+    return next(w for w in CP_WIDTHS if w >= c)
+
+
+def pack_deform_bwd(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core route's operands: x [B, D, H, W, C] with zero channels
+    appended up to CP, the first of CP_WIDTHS >= C (itself when C is one),
+    and weight [3, 3, 3, C, Co] as the taps' rows [27, CP, Co], zero for the
+    padded channels (each tap's rows are the B of its gcols product)."""
+    c = x.shape[-1]
+    cp = _padded_channels(c)
+    wpk = weight.reshape(KTAPS, c, weight.shape[-1])
+    if cp != c:
+        x = torch.nn.functional.pad(x, (0, cp - c))
+        wpk = torch.nn.functional.pad(wpk, (0, 0, 0, cp - c))
+    return x, wpk.contiguous()
 
 
 def _check_inputs(name, x, offset, weight):
@@ -189,20 +237,27 @@ def deform_conv3d_bwd(x, offset, weight, bias, g, aperture=True):
     b, d, h, w, c = x.shape
     if c > CIN_MAX:
         raise ValueError(f"deform_conv3d_bwd: the kernel takes at most {CIN_MAX} input channels, not {c}")
-    m = b * d * h * w
-    # per-block gw partial sums: a share of the voxel tiles per block and tap
-    nsplit = max(1, min(32, -(-m // 4096)))
     dev, f32 = x.device, torch.float32
-    gx32 = torch.empty(x.shape, dtype=f32, device=dev)
-    gx = gx32 if x.dtype == f32 else torch.empty_like(x)
+    route, cp, nsplit = bwd_plan(x.shape, x.dtype, torch.cuda.get_device_properties(dev).multi_processor_count)
     goff = torch.empty_like(offset)
-    gwp = torch.empty((nsplit, KTAPS * c, CO), dtype=f32, device=dev)
     gw = torch.empty_like(weight)
-    fn = _build.entry("deform_conv3d_bwd", "dpf_deform_conv3d_bwd",
-                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-    rc = fn(x.data_ptr(), offset.data_ptr(), weight.data_ptr(), g.data_ptr(), gx32.data_ptr(), gx.data_ptr(),
-            goff.data_ptr(), gwp.data_ptr(), gw.data_ptr(), b, d, h, w, c, CO, nsplit, int(bool(aperture)),
-            int(x.dtype == torch.bfloat16), _build.current_stream(dev))
+    gwp = torch.empty((nsplit, KTAPS * c, CO), dtype=f32, device=dev)
+    stream = _build.current_stream(dev)
+    if route == "simt":
+        gx = torch.empty(x.shape, dtype=f32, device=dev)
+        fn = _build.entry("deform_conv3d_bwd", "dpf_deform_conv3d_bwd",
+                          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), offset.data_ptr(), weight.data_ptr(), g.data_ptr(), gx.data_ptr(), goff.data_ptr(),
+                gwp.data_ptr(), gw.data_ptr(), b, d, h, w, c, CO, nsplit, int(bool(aperture)), stream)
+    else:
+        xp, wpk = pack_deform_bwd(x, weight)
+        gx32 = torch.empty((b, d, h, w, cp), dtype=f32, device=dev)
+        gx = torch.empty_like(x)
+        fn = _build.entry("deform_conv3d_bwd", "dpf_deform_conv3d_bwd_tc",
+                          [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        rc = fn(xp.data_ptr(), offset.data_ptr(), wpk.data_ptr(), g.data_ptr(), gx32.data_ptr(), gx.data_ptr(),
+                goff.data_ptr(), gwp.data_ptr(), gw.data_ptr(), b, d, h, w, c, cp, CO, nsplit, int(bool(aperture)),
+                stream)
     deform_conv3d_bwd.launches += 1
     _build.check_launch(rc, "deform_conv3d_bwd")
     gb = None if bias is None else g.sum(dim=(0, 1, 2, 3), dtype=f32).to(bias.dtype)

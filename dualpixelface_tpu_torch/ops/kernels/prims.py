@@ -121,8 +121,9 @@ def transpose_sum(x: torch.Tensor) -> torch.Tensor:
 
 def batched_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """T4. a [G, m, k], b [G, k, n], one dtype (f32 or bf16) -> [G, m, n]
-    f32. CPU tensors: the plain version. CUDA tensors: the kernel (n = 64
-    only), or an error."""
+    f32. CPU tensors: the plain version. CUDA tensors: the kernel (n = 64,
+    rows of k * element size a multiple of 16 bytes: the TMA's and
+    cp.async's granule), or an error."""
     _check_rank("batched_dot", 3, a=a, b=b)
     g, m, k = a.shape
     if b.shape[:2] != (g, k):
@@ -133,7 +134,12 @@ def batched_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[2]
     if n != DOT_N:
         raise ValueError(f"batched_dot: the kernel takes n = {DOT_N} output channels, not {n}")
+    if k * a.element_size() % 16:
+        raise ValueError(f"batched_dot: the kernel takes rows of k * element size a multiple of 16 bytes, "
+                         f"not k = {k} in {a.dtype}")
     _build.check_cuda_tensors("batched_dot", a.device, a=a, b=b)
+    if (a.data_ptr() | b.data_ptr()) % 16:
+        raise ValueError("batched_dot: a and b must start on 16-byte boundaries")
     fn = _build.entry("prims_dot", "dpf_batched_dot",
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     out = torch.empty((g, m, n), dtype=torch.float32, device=a.device)

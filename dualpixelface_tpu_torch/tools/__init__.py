@@ -4,8 +4,9 @@ kernels, on the card:
     python3 -m dualpixelface_tpu_torch.tools.bench_vpu_prims    # T2-T4 (tools/bench_vpu_prims.py)
     python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold  # T1 (tools/bench_dslice_fold.py --module convbn)
 
-Both need a GPU and fail without one. Shared here: the H100's peak rates
-and the timing and bound helpers."""
+and of the port's own: `bench_k2_split`, where K2's time goes (builds of
+it that leave one part out). All need a GPU and fail without one. Shared
+here: the H100's peak rates and the timing and bound helpers."""
 from __future__ import annotations
 
 import functools

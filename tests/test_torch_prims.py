@@ -112,10 +112,13 @@ def _on_cuda(t):
 @pytest.mark.parametrize("case", [
     "gather-int64-index", "gather-int32-index-bf16", "gather-int16-index-f32", "gather-rank", "gather-width",
     "gather-index-rows", "transpose-rank", "transpose-width", "dot-rank", "dot-inner", "dot-cuda-width",
+    "dot-cuda-k-f32", "dot-cuda-k-bf16",
 ])
 def test_prims_wrappers_refuse_bad_inputs(case):
     """Each wrapper raises on a wrong index type, rank or width before
-    anything is launched or counted; T4's kernel takes n = 64 only."""
+    anything is launched or counted; T4's kernel takes n = 64 only, and rows
+    of k * element size a multiple of 16 bytes (its TMA and cp.async
+    granule: k % 4 in f32, k % 8 in bf16)."""
     f32, bf16 = torch.float32, torch.bfloat16
     tab = torch.zeros(2, 4, 128)
     idx = torch.zeros(2, 8, 128, dtype=torch.int32)
@@ -132,6 +135,10 @@ def test_prims_wrappers_refuse_bad_inputs(case):
         "dot-inner": (lambda: batched_dot(torch.zeros(2, 4, 8), torch.zeros(2, 9, 64)), ValueError),
         "dot-cuda-width": (lambda: batched_dot(_on_cuda(torch.zeros(2, 4, 8, dtype=f32)),
                                                _on_cuda(torch.zeros(2, 8, 16, dtype=f32))), ValueError),
+        "dot-cuda-k-f32": (lambda: batched_dot(_on_cuda(torch.zeros(2, 4, 6, dtype=f32)),
+                                               _on_cuda(torch.zeros(2, 6, 64, dtype=f32))), ValueError),
+        "dot-cuda-k-bf16": (lambda: batched_dot(_on_cuda(torch.zeros(2, 4, 12, dtype=bf16)),
+                                                _on_cuda(torch.zeros(2, 12, 64, dtype=bf16))), ValueError),
     }[case]
     before = launch_counts()
     with pytest.raises(err):
@@ -191,7 +198,7 @@ def test_bench_dslice_fold_checks_both_epilogues():
     assert all(r["max_abs_err"] == 0.0 and r["worst_ratio"] == 0.0 for r in res)
 
 
-@pytest.mark.parametrize("tool", ["bench_vpu_prims", "bench_dslice_fold"])
+@pytest.mark.parametrize("tool", ["bench_vpu_prims", "bench_dslice_fold", "bench_k2_split"])
 def test_tools_refuse_to_run_without_cuda(tool, monkeypatch):
     """The tools measure the card: without CUDA they exit, and nothing
     falls back to the CPU."""
