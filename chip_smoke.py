@@ -8,23 +8,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. build the nine CUDA kernels from `dualpixelface_tpu_torch/csrc/`
      (one nvcc per source, all at once), print the build seconds and each
      entry function's registers, shared memory and spill bytes from the
-     build log; a tensor-core kernel (the bf16 routes of K5 and T1, of K2
-     and of T4) that spills fails;
+     build log; a tensor-core kernel (the bf16 routes of K1, of K5 and T1,
+     of K2 and of T4) that spills, or one missing from the log, fails;
   3. check each forward kernel (K1, K3, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
-     in bf16 and f32 (TF32 off);
+     in bf16 and f32 (TF32 off); each K1 check names its route, the
+     tensor cores for bf16 and the SIMT kernel for f32;
   3b. the same for the backward kernels at the train path's shapes: K2 (all
      four gradients, both apertures, a quarter of the offsets whole numbers
      and some on the window bound; each check names its route, the
      tensor cores for bf16 and the SIMT kernel for f32) and K4;
-  3c. K5 (Cin 35 and 64), T1 (Co 32 and 64, without and with the folded
-     BatchNorm and ReLU) and K2 (Cin 35 and 64, both apertures) at small
-     ragged shapes (`EDGE_SHAPES`: M no multiple of a tile, H or W below 3,
-     D = 1), bf16 and f32;
+  3c. K1 (Cin 35 and 64, both apertures), K5 (Cin 35 and 64), T1 (Co 32
+     and 64, without and with the folded BatchNorm and ReLU) and K2 (Cin 35
+     and 64, both apertures) at small ragged shapes (`EDGE_SHAPES`: M no
+     multiple of a tile, H or W below 3, D = 1), bf16 and f32;
   4. time each forward kernel, its plain version and, for K5, cuDNN's
      conv3d (which the port never calls) in NCDHW and in channels_last_3d
      (the kernel's own NDHWC), the faster of the two as its `library_ms`,
-     with CUDA events;
+     with CUDA events; one `K1_run` and one `K5_run` line per Cin (K1's
+     time includes its operands' packing);
   4b. the same for K2 and K4 at the train path's shapes;
   5. serve 3 request batches of 4 dual-pixel pairs at 768x576 in bf16
      through `Predictor` (seeded weights, non-zero offset heads): shapes,
@@ -108,7 +110,7 @@ BWD_TOL = {"float32": {"gx": 1e-4, "goff": 1e-4, "gw": 2e-5, "gb": 1e-4},
 K1_F32_OPS = 15
 K2_F32_OPS = 53
 
-# phase 3c: [B, D, H, W] of K5's, T1's and K2's ragged checks: M = 10, 378, 4, 15
+# phase 3c: [B, D, H, W] of K1's, K5's, T1's and K2's ragged checks: M = 10, 378, 4, 15
 # (no multiple of a 128-voxel tile), H = 2 and 1, W = 2 and 1, D = 1
 EDGE_SHAPES = ((1, 1, 2, 5), (2, 3, 7, 9), (1, 2, 1, 2), (3, 5, 1, 1))
 
@@ -180,12 +182,14 @@ def print_build_report(report: dict) -> None:
                     for mt in (1, 2)})
     dynamic.update({("deform_conv3d_bwd", "deform_bwd_tc_kernel", cp):
                     smem("deform_conv3d_bwd", "dpf_deform_conv3d_bwd_tc_smem_bytes") for cp in (40, 64)})
+    dynamic.update({("deform_conv3d", "deform_fwd_tc_kernel", cp):
+                    smem("deform_conv3d", "dpf_deform_conv3d_tc_smem_bytes", cp) for cp in (40, 64)})
     seen = set()
     for name, r in report.items():
         for f in ptxas_report(r["log"]):
             line = (f"ptxas {name}: {f['function']}: {f.get('registers')} registers, {f.get('static_smem')} bytes "
                     f"static smem, spill stores {f.get('spill_stores')} / loads {f.get('spill_loads')} bytes")
-            if m := re.search(r"(conv3d_tc_kernel|dot_bf16_kernel|deform_bwd_tc_kernel)ILi(\d+)E", f["function"]):
+            if m := re.search(r"(conv3d_tc_kernel|dot_bf16_kernel|deform_bwd_tc_kernel|deform_fwd_tc_kernel)ILi(\d+)E", f["function"]):
                 key = (name, m.group(1), int(m.group(2)))
                 seen.add(key)
                 line += f", dynamic smem {dynamic[key]} bytes ({key[1]}<{key[2]}>)"
@@ -245,7 +249,7 @@ def check_and_time_kernels(torch):
     from dualpixelface_tpu_torch.tools import cuda_ms, cudnn_conv3d_calls
     from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
-    from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_fused, deform_conv3d_plain
+    from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_fused, deform_conv3d_plain, fwd_route
     from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin, fused_softargmin_plain
 
     torch.backends.cudnn.allow_tf32 = False
@@ -260,7 +264,7 @@ def check_and_time_kernels(torch):
         for cin in CINS:
             x, off, w, bias, w_off, b_off = kernel_inputs(torch, gen, cin, dtype)
             for aperture in (True, False):
-                e = compare(f"K1 deform_conv3d_fused Cin={cin} aperture={aperture}",
+                e = compare(f"K1 deform_conv3d_fused [{fwd_route(dtype)}] Cin={cin} aperture={aperture}",
                             deform_conv3d_fused(x, off, w, bias, aperture=aperture),
                             deform_conv3d_plain(x, off, w, bias, aperture=aperture), dname)
                 if dtype == bf16 and aperture:
@@ -273,10 +277,17 @@ def check_and_time_kernels(torch):
                 continue
             # timing at the serving dtype; the two Cin shapes of one forward add up
             k1 = timing["K1"]
-            k1["ms"] += cuda_ms(lambda: deform_conv3d_fused(x, off, w, bias, aperture=True), 5)
-            k1["plain_ms"] += cuda_ms(lambda: deform_conv3d_plain(x, off, w, bias, aperture=True), 2)
             m = math.prod(ANM_SHAPE)
-            k1["flops"] += 2.0 * m * 27 * cin * COUT
+            run = {"cin": cin, "route": fwd_route(dtype),
+                   "ms": cuda_ms(lambda: deform_conv3d_fused(x, off, w, bias, aperture=True), 5),
+                   "plain_ms": cuda_ms(lambda: deform_conv3d_plain(x, off, w, bias, aperture=True), 2),
+                   "flops": 2.0 * m * 27 * cin * COUT}
+            run["tflops"] = run["flops"] / run["ms"] / 1e9
+            print(json.dumps({"K1_run": run}), flush=True)
+            k1.setdefault("runs", []).append(run)
+            k1["ms"] += run["ms"]
+            k1["plain_ms"] += run["plain_ms"]
+            k1["flops"] += run["flops"]
             k1["flops_f32"] += K1_F32_OPS * m * 27 * cin
             k1["bytes"] += sum(t.numel() * t.element_size() for t in (x, off, w, bias)) + m * COUT * 2
             k5 = timing["K5"]
@@ -380,13 +391,15 @@ def check_and_time_backward_kernels(torch, err, timing):
 
 
 def check_edge_shapes(torch):
-    """Phase 3c: K5, T1 and K2 at the ragged `EDGE_SHAPES`, Cin 35 and 64,
-    bf16 and f32: K5 within `REL_TOL`, T1 (Co 32 and 64, without and with
-    the folded BatchNorm and ReLU) within `bench_dslice_fold.excess_error`'s
-    allowance, K2 (both apertures, each route) within `BWD_TOL`."""
+    """Phase 3c: K1, K5, T1 and K2 at the ragged `EDGE_SHAPES`, Cin 35 and
+    64, bf16 and f32: K1 (both apertures, each route) and K5 within
+    `REL_TOL`, T1 (Co 32 and 64, without and with the folded BatchNorm and
+    ReLU) within `bench_dslice_fold.excess_error`'s allowance, K2 (both
+    apertures, each route) within `BWD_TOL`."""
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import COS
-    from dualpixelface_tpu_torch.ops.kernels.deform_fused import bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain
+    from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
+        bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain, deform_conv3d_fused, deform_conv3d_plain, fwd_route)
     from dualpixelface_tpu_torch.tools import bench_dslice_fold as fold
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -404,6 +417,10 @@ def check_edge_shapes(torch):
                         if not r["worst_ratio"] <= 1.0:
                             fail(f"T1 {shape + (cin,)} -> {co} {dname}: kernel disagrees with its plain version")
                 x, off, w, bias, _, _ = kernel_inputs(torch, gen, cin, dtype, shape, on_bound=True)
+                for aperture in (True, False):
+                    compare(f"K1 deform_conv3d_fused [{fwd_route(dtype)}] {shape + (cin,)} aperture={aperture}",
+                            deform_conv3d_fused(x, off, w, bias, aperture=aperture),
+                            deform_conv3d_plain(x, off, w, bias, aperture=aperture), dname)
                 g = torch.randn(shape + (COUT,), generator=gen, device="cuda").to(dtype)
                 for aperture in (True, False):
                     got = deform_conv3d_bwd(x, off, w, bias, g, aperture=aperture)

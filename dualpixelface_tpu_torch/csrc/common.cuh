@@ -1,7 +1,7 @@
 // Shared pieces of the port's CUDA kernels: dtype conversions, the f32 ->
 // bf16 cast of the backward kernels' accumulators, and the SIMT im2col-GEMM
-// tile of K1 (deform conv) and of the f32 route of K5 and T1 (dense 3x3x3
-// convs; their bf16 route is the tensor-core tile of conv_tc.cuh).
+// tile of the f32 routes of K1 (deform conv), K5 and T1 (dense 3x3x3 convs;
+// their bf16 routes run on the tensor cores, conv_tc.cuh).
 //
 // The GEMM tile is a plain SIMT design: a block of 256 threads (16 x 16)
 // owns BM = 128 output voxels x all Co <= 16*TN output channels; each thread

@@ -3,7 +3,7 @@
 // accumulate), with its A tile gathered by cp.async. K1 and K2, whose
 // contractions are the same [voxels x 27 C] x [27 C x Co] product over a
 // gathered A, can take the B ring, the descriptors and the MMA as they are
-// (K2 and T4 do; their TMA ring is tma.cuh's).
+// (K1, K2 and T4 do; their TMA ring is tma.cuh's).
 //
 // The product: out[m][n] = sum_k A[m][k] B[n][k], m a voxel of x
 // [B, D, H, W, C] (NDHWC, C % 8 == 0), k = tap * C + c over the 27 taps

@@ -10,7 +10,9 @@ batch["abvalue"] [B, 2]. Outputs (the JAX package's contract), with n = 1
 head in eval mode and n = 3 in train mode (`.train()`; the aggregation's
 three classifier heads, the ANM on the first): pred_depth [B, n, H, W];
 prob_depth [B, n, 4*level, H, W] or None under the fused regression;
-pred_normal [B, 1, H, W, 3]; ref_feature [B, H/4, W/4].
+pred_normal [B, 1, H, W, 3]; ref_feature [B, H/4, W/4]; with
+`model.return_offsets` set, also anm_offset1 and anm_offset2 [B, D, h, w, 81]
+(the ANM deform convs' offsets, after the clamp when `deform_offset_clamp`).
 """
 from __future__ import annotations
 
@@ -63,12 +65,16 @@ class STEREODPNET(nn.Module):
                 disps.append(disp)
                 probs.append(prob)
 
-        normal = None
+        normal = off1 = off2 = None
         if self.normal_estimator is not None:
-            normal, _, _ = self.normal_estimator(cost_feats[0], disps[0], batch)
-        return {
+            normal, off1, off2 = self.normal_estimator(cost_feats[0], disps[0], batch)
+        results = {
             "pred_depth": torch.stack(disps, dim=1),
             "prob_depth": torch.stack(probs, dim=1) if probs else None,
             "pred_normal": None if normal is None else normal[:, None],
             "ref_feature": torch.amax(ref_fea, dim=1),
         }
+        if self.option.model.get("return_offsets", False):
+            results["anm_offset1"] = off1
+            results["anm_offset2"] = off2
+        return results

@@ -14,11 +14,13 @@ serves both semantics through `aperture`:
     windowed semantics (`deform_impl='pallas'`);
   * aperture=False: unbounded, the reference's sampling (`packed8`).
 
-`deform_conv3d_fused` is differentiable: its backward recomputes from the
-saved inputs, as the JAX custom VJP does, through `deform_conv3d_bwd`, which
-takes one of two routes by dtype (`bwd_route`): bf16 (the train path) on
-the tensor cores, with x and the weight first laid out for them
-(`pack_deform_bwd`), f32 on the SIMT kernel.
+Each kernel takes one of two routes by dtype (`fwd_route`, `bwd_route`):
+bf16 (serving and the train path) on the tensor cores, with x and the
+weight first laid out for them (`pack_deform_fwd`, `pack_deform_bwd`: x's
+channels padded to CP, the weight as each tap's rows), f32 (the checks'
+exact sums) on the SIMT kernels. `deform_conv3d_fused` is differentiable:
+its backward recomputes from the saved inputs, as the JAX custom VJP does,
+through `deform_conv3d_bwd`.
 Each wrapper takes the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; anything else raises, as does a CUDA call with
 other than CO output channels (the one width the kernels are built for).
@@ -38,8 +40,9 @@ AP = 3               # aperture: +-AP voxels around the output voxel (H, W)
 EPS = 1.0 / 1024.0
 KTAPS = 27
 CO = 64              # the kernel's output channels: the ANM deform convs', its only caller
-CIN_MAX = 64         # K2 keeps a tap's weight rows for up to 64 input channels in shared memory
-CP_WIDTHS = (40, 64)  # K2's tensor-core route: x's channels padded to the first that holds them
+CIN_MAX = 64         # the tensor-core routes (and K2's SIMT route) take up to 64 input channels
+CP_WIDTHS = (40, 64)  # the tensor-core routes: x's channels padded to the first that holds them
+K_STEP = 16          # K1's wgmma contracts 16 channels a step: its weight rows per tap are CP rounded up
 
 
 def clamp_positions(pos: torch.Tensor, out_coord: torch.Tensor) -> torch.Tensor:
@@ -115,15 +118,26 @@ def deform_conv3d_bwd_plain(x, offset, weight, bias, g, aperture=False):
     return tuple(grads) + ((None,) if bias is None else ())
 
 
-def bwd_route(dtype: torch.dtype) -> str:
-    """K2's kernel for a dtype: "tensor_cores" (bf16: `wgmma` contractions,
-    the train path) or "simt" (f32: the checks' exact-f32 sums). Both take
-    either aperture."""
+def _route(name: str, dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16:
         return "tensor_cores"
     if dtype == torch.float32:
         return "simt"
-    raise TypeError(f"deform_conv3d_bwd: no kernel for dtype {dtype}")
+    raise TypeError(f"{name}: no kernel for dtype {dtype}")
+
+
+def fwd_route(dtype: torch.dtype) -> str:
+    """K1's kernel for a dtype: "tensor_cores" (bf16: the `wgmma`
+    contraction, serving and the train path's forward) or "simt" (f32: the
+    checks' exact-f32 sums). Both take either aperture."""
+    return _route("deform_conv3d_fused", dtype)
+
+
+def bwd_route(dtype: torch.dtype) -> str:
+    """K2's kernel for a dtype: "tensor_cores" (bf16: `wgmma` contractions,
+    the train path) or "simt" (f32: the checks' exact-f32 sums). Both take
+    either aperture."""
+    return _route("deform_conv3d_bwd", dtype)
 
 
 def bwd_plan(shape, dtype: torch.dtype, sms: int) -> tuple[str, int, int]:
@@ -144,18 +158,39 @@ def _padded_channels(c: int) -> int:
     return next(w for w in CP_WIDTHS if w >= c)
 
 
-def pack_deform_bwd(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The tensor-core route's operands: x [B, D, H, W, C] with zero channels
-    appended up to CP, the first of CP_WIDTHS >= C (itself when C is one),
-    and weight [3, 3, 3, C, Co] as the taps' rows [27, CP, Co], zero for the
-    padded channels (each tap's rows are the B of its gcols product)."""
+def _pack(x: torch.Tensor, weight: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, D, H, W, C] with zero channels appended up to CP, the first of
+    CP_WIDTHS >= C (itself when C is one), and weight [3, 3, 3, C, Co] as
+    the taps' rows [27, rows, Co], zero past C."""
     c = x.shape[-1]
     cp = _padded_channels(c)
-    wpk = weight.reshape(KTAPS, c, weight.shape[-1])
     if cp != c:
         x = torch.nn.functional.pad(x, (0, cp - c))
-        wpk = torch.nn.functional.pad(wpk, (0, 0, 0, cp - c))
+    wpk = weight.reshape(KTAPS, c, weight.shape[-1])
+    if rows != c:
+        wpk = torch.nn.functional.pad(wpk, (0, 0, 0, rows - c))
     return x, wpk.contiguous()
+
+
+def pack_deform_bwd(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's tensor-core operands: x padded to CP channels and the taps'
+    weight rows [27, CP, Co] (each tap's rows are the B of its gcols
+    product)."""
+    return _pack(x, weight, _padded_channels(x.shape[-1]))
+
+
+def fwd_weight_rows(c: int) -> int:
+    """K1's weight rows per tap for C input channels: CP rounded up to the
+    wgmma K step (40 -> 48, 64 -> 64)."""
+    return -(-_padded_channels(c) // K_STEP) * K_STEP
+
+
+def pack_deform_fwd(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's tensor-core operands: x padded to CP channels and the taps'
+    weight rows [27, KP, Co], KP = `fwd_weight_rows(C)` (each tap's rows are
+    the B of its product; the rows past CP meet the A tile's zero
+    channels)."""
+    return _pack(x, weight, fwd_weight_rows(x.shape[-1]))
 
 
 def _check_inputs(name, x, offset, weight):
@@ -185,12 +220,22 @@ def _forward(x, offset, weight, bias, aperture):
         return deform_conv3d_plain(x, offset, weight, bias, aperture)
     _check_cuda_call("deform_conv3d_fused", x, offset, weight, bias)
     b, d, h, w, c = x.shape
-    fn = _build.entry("deform_conv3d", "dpf_deform_conv3d",
-                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     out = torch.empty((b, d, h, w, CO), dtype=x.dtype, device=x.device)
-    rc = fn(x.data_ptr(), offset.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), b, d, h, w, c, CO, int(bool(aperture)), int(x.dtype == torch.bfloat16),
-            _build.current_stream(x.device))
+    bptr = None if bias is None else bias.data_ptr()
+    stream = _build.current_stream(x.device)
+    if fwd_route(x.dtype) == "simt":
+        fn = _build.entry("deform_conv3d", "dpf_deform_conv3d",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), offset.data_ptr(), weight.data_ptr(), bptr, out.data_ptr(), b, d, h, w, c, CO,
+                int(bool(aperture)), stream)
+    else:
+        if c > CIN_MAX:
+            raise ValueError(f"deform_conv3d_fused: the kernel takes at most {CIN_MAX} input channels, not {c}")
+        fn = _build.entry("deform_conv3d", "dpf_deform_conv3d_tc",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        xp, wpk = pack_deform_fwd(x, weight)
+        rc = fn(xp.data_ptr(), offset.data_ptr(), wpk.data_ptr(), bptr, out.data_ptr(), b, d, h, w, c,
+                xp.shape[-1], CO, int(bool(aperture)), stream)
     deform_conv3d_fused.launches += 1
     _build.check_launch(rc, "deform_conv3d_fused")
     return out

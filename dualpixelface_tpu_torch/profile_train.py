@@ -2,11 +2,13 @@
 
     python3 -m dualpixelface_tpu_torch.profile_train [--iters 30] [--top 25]
 
-Trains stereodpnet_plus in the train cell (the run keys TRAIN_CELL: batch
-2 under the bf16 policy, the JAX bench's train step; H x W = 768 x 576,
-Adam at the configured rate) from seeded weights with non-zero offset
-heads, on a `train_batch` (the JAX bench's recipe), after one warm-up step,
-and prints, as JSON lines:
+Trains the `stereodpnet_plus` train cell (fast attention, offset clamp),
+batch 2 under the bf16 policy (the run keys TRAIN_CELL), on the JAX
+bench's batch recipe (`train_batch`), H x W = 768 x 576, Adam at the
+configured rate, from seeded weights with non-zero offset heads, after one
+warm-up step. The JAX bench's own train step (`bench.py:306-317`:
+`stereodpnet`, exact attention, no offset clamp) waits for the port of
+that configuration. It prints, as JSON lines:
   * the train rate (`profile_serving.timed` over --iters steps) and the
     peak device memory of a step;
   * each phase's device time in one step: the forward's top-level stages
@@ -34,8 +36,8 @@ from dualpixelface_tpu_torch.train.state import create_train_state
 from dualpixelface_tpu_torch.train.steps import make_train_step
 
 H, W = 768, 576
-# The run keys of the train cell: the JAX bench's train step
-# (`bench.py:293-345`), batch 2 under the bf16 policy.
+# The run keys of the `stereodpnet_plus` train cell (fast attention, offset
+# clamp): batch 2 under the bf16 policy, on the JAX bench's batch recipe.
 TRAIN_CELL = {"precision": "bf16", "batch_size": 2}
 
 

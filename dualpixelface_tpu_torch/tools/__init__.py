@@ -4,12 +4,16 @@ kernels, on the card:
     python3 -m dualpixelface_tpu_torch.tools.bench_vpu_prims    # T2-T4 (tools/bench_vpu_prims.py)
     python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold  # T1 (tools/bench_dslice_fold.py --module convbn)
 
-and of the port's own: `bench_k2_split`, where K2's time goes (builds of
-it that leave one part out). All need a GPU and fail without one. Shared
+and of the port's own: `bench_k2_split` and `bench_k1_split`, where K2's
+and K1's time goes (builds of each that leave one part out). All need a GPU and fail without one. Shared
 here: the H100's peak rates and the timing and bound helpers."""
 from __future__ import annotations
 
+import ctypes
 import functools
+import hashlib
+import subprocess
+from pathlib import Path
 
 import torch
 
@@ -60,3 +64,27 @@ def bound_ms(nbytes: float, *work: tuple[float, float]) -> tuple[float, str]:
     t_ops = max((ops / peak * 1e3 for ops, peak in work), default=0.0)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def build_variants(source: str, csrc: Path, tag: str, variants: dict[str, list[str]]) -> dict[str, ctypes.CDLL]:
+    """Build the kernel source text `source` (which includes the headers of
+    `csrc`) once per variant, with that variant's extra nvcc flags, all at
+    once, into `<tag>/<hash of the source>/` beside the kernels' build
+    directory; returns each variant's loaded library."""
+    from dualpixelface_tpu_torch.ops.kernels import _build
+
+    out = _build.BUILD_DIR.parent / tag / hashlib.sha256(source.encode()).hexdigest()[:12]
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "kernel.cu").write_text(source)
+    for header in csrc.glob("*.cuh"):
+        (out / header.name).write_text(header.read_text())
+    procs = {v: subprocess.Popen([_build._nvcc(), *_build._NVCC_FLAGS, *flags, "-o", str(out / f"lib{v}.so"),
+                                  str(out / "kernel.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for v, flags in variants.items()}
+    libs = {}
+    for v, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for variant {v} of {out}:\n{log}")
+        libs[v] = ctypes.CDLL(str(out / f"lib{v}.so"))
+    return libs

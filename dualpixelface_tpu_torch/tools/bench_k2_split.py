@@ -24,16 +24,15 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import math
-import subprocess
 from pathlib import Path
 
 import torch
 
 from dualpixelface_tpu_torch.ops.kernels import _build
 from dualpixelface_tpu_torch.ops.kernels.deform_fused import CO, KTAPS, bwd_plan, pack_deform_bwd
+from dualpixelface_tpu_torch.tools import build_variants as tools_build_variants
 from dualpixelface_tpu_torch.tools import cuda_ms, require_cuda
 
 SHAPE = (2, 4, 192, 144)  # the train path's ANM volume, batch 2 at 768x576
@@ -101,21 +100,7 @@ def build_variants(csrc: Path) -> tuple[str, dict[str, ctypes.CDLL]]:
     """Patch and build the variants of csrc/deform_conv3d_bwd.cu, all at
     once; returns the design and each variant's loaded library."""
     kind, source = patched((csrc / "deform_conv3d_bwd.cu").read_text())
-    out = _build.BUILD_DIR.parent / "split" / hashlib.sha256(source.encode()).hexdigest()[:12]
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "k2.cu").write_text(source)
-    for header in csrc.glob("*.cuh"):
-        (out / header.name).write_text(header.read_text())
-    procs = {v: subprocess.Popen([_build._nvcc(), *_build._NVCC_FLAGS, *flags, "-o", str(out / f"lib{v}.so"),
-                                  str(out / "k2.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for v, flags in VARIANTS.items()}
-    libs = {}
-    for v, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"bench_k2_split: nvcc failed for {v}:\n{log}")
-        libs[v] = ctypes.CDLL(str(out / f"lib{v}.so"))
-    return kind, libs
+    return kind, tools_build_variants(source, csrc, "split", VARIANTS)
 
 
 def variant_call(kind: str, lib: ctypes.CDLL, x, off, w, g):

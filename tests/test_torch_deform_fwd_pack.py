@@ -1,0 +1,126 @@
+"""The host side of K1's routes (`ops/kernels/deform_fused.py`), on the CPU.
+
+The tensor-core route (bf16) reads x with its channels padded to CP (40 or
+64) and each tap's weight rows packed as [27, KP, Co], KP = CP rounded up
+to the wgmma K step of 16 (`pack_deform_fwd`); the kernel's A tile holds
+zeros in channels CP..KP-1. Through the plain forward, the packed operands
+(x padded on to KP, as the A tile is) must give exactly the unpacked
+output, and every padded entry must be exactly zero. Which kernel a call
+takes follows its dtype alone (`fwd_route`); off the CPU a call launches
+that kernel or raises, whatever the dtype and aperture."""
+import numpy as np
+import pytest
+import torch
+
+from dualpixelface_tpu_torch.ops.kernels import launch_counts
+from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
+    CP_WIDTHS, KTAPS, deform_conv3d_fused, deform_conv3d_plain, fwd_route, fwd_weight_rows, pack_deform_fwd)
+from torch_cpu_setup import two_threads
+
+two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
+
+CINS = [3, 35, 40, 64]  # padded to 40, 40, 40 (as it is), 64 (as it is); rows 48, 48, 48, 64
+
+
+def _operands(cin, seed=0, shape=(2, 3, 5, 4)):
+    """Values on which every sum of the plain forward is exact in f32, in
+    any order: x and the weight small integers, the offsets multiples of
+    1/4 (so each corner weight is a multiple of 1/64) in [-6, 2.75], which
+    the aperture clamps at its lower bound (a whole number) and never at
+    its upper one. So the packed and the unpacked operands must agree bit
+    for bit, whatever order the product's sums take."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, shape + (cin,))
+    off = rng.integers(-24, 12, shape + (81,)) / 4.0
+    w = rng.integers(-2, 3, (3, 3, 3, cin, 64))
+    bias = rng.integers(-4, 5, (64,))
+    return [torch.from_numpy(np.asarray(a, np.float32)) for a in (x, off, w, bias)]
+
+
+@pytest.mark.parametrize("aperture", [True, False])
+@pytest.mark.parametrize("cin", CINS)
+def test_packed_operands_give_the_same_forward(cin, aperture):
+    x, off, w, bias = _operands(cin)
+    xp, wpk = pack_deform_fwd(x, w)
+    kp = wpk.shape[1]
+    # the A tile's channels past CP are zero: x padded on to KP
+    xk = torch.nn.functional.pad(xp, (0, kp - xp.shape[-1]))
+    got = deform_conv3d_plain(xk, off, wpk.reshape(3, 3, 3, kp, 64), bias, aperture)
+    ref = deform_conv3d_plain(x, off, w, bias, aperture)
+    assert ref.abs().max() > 1.0  # the data reach the sums
+    assert torch.equal(got, ref)
+
+
+def test_aperture_changes_the_operands_output():
+    """The offsets of `_operands` reach past the window, so the two
+    apertures sample differently (the test above checks both)."""
+    x, off, w, bias = _operands(35)
+    assert not torch.equal(deform_conv3d_plain(x, off, w, bias, True), deform_conv3d_plain(x, off, w, bias, False))
+
+
+@pytest.mark.parametrize("cin", CINS)
+def test_padding_is_exactly_zero(cin):
+    x, _, w, _ = _operands(cin, seed=1)
+    xp, wpk = pack_deform_fwd(x, w)
+    cp = next(c for c in CP_WIDTHS if c >= cin)
+    kp = fwd_weight_rows(cin)
+    assert xp.shape == x.shape[:-1] + (cp,) and xp.is_contiguous()
+    assert wpk.shape == (KTAPS, kp, 64) and wpk.is_contiguous() and wpk.dtype == w.dtype
+    assert torch.equal(xp[..., :cin], x) and not xp[..., cin:].any()
+    assert torch.equal(wpk[:, :cin], w.reshape(KTAPS, cin, 64)) and not wpk[:, cin:].any()
+    if cp == cin:
+        assert xp is x  # no copy of an operand already laid out for the kernel
+    # one TMA box row of the weight is 128 bytes in bf16, a tap's rows fill
+    # whole 1024-byte ring slots, and x's rows are 80 or 128 bytes
+    assert wpk.stride(1) * 2 == 128 and (kp * 128) % 1024 == 0 and (xp.shape[-1] * 2) % 16 == 0
+
+
+@pytest.mark.parametrize("cin,rows", [(1, 48), (3, 48), (35, 48), (40, 48), (41, 64), (64, 64)])
+def test_weight_rows_are_whole_k_steps(cin, rows):
+    assert fwd_weight_rows(cin) == rows and rows % 16 == 0
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_cores"), (torch.float32, "simt"),
+                                         (torch.float16, None)])
+def test_route_follows_the_dtype(dtype, route):
+    if route is None:
+        with pytest.raises(TypeError):
+            fwd_route(dtype)
+    else:
+        assert fwd_route(dtype) == route
+
+
+class _TensorOnCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("aperture", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_either_route_raises_instead_of_falling_back(dtype, aperture):
+    """Off the CPU, K1 launches the kernel of its route or raises: with no
+    CUDA toolkit and no card here, every dtype and aperture raises and
+    nothing is counted."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the fake CUDA tensor could reach a kernel")
+    x, off, w, bias = (torch.Tensor._make_subclass(_TensorOnCuda, t.to(dtype)) for t in _operands(35))
+    before = launch_counts()
+    with pytest.raises((RuntimeError, ValueError)):
+        deform_conv3d_fused(x, off, w, bias, aperture=aperture)
+    assert launch_counts() == before
+
+
+def test_split_tool_patches_the_kernel_source():
+    """`tools.bench_k1_split` compiles parts of K1 out by patching its
+    source: every text it patches is in the tensor-core kernel's source
+    exactly once, and each variant's macro lands in the patched source."""
+    from dualpixelface_tpu_torch.ops.kernels import _build
+    from dualpixelface_tpu_torch.tools import bench_k1_split as split
+
+    source = split.patched((_build.CSRC / "deform_conv3d.cu").read_text())
+    for flags in split.VARIANTS.values():
+        for flag in flags:
+            assert flag.removeprefix("-D") in source, flag

@@ -114,6 +114,43 @@ def test_stereodpnet_plus_eval_matches_jax(jax_side, weights):
     assert diff.mean() < 1e-4
 
 
+@pytest.fixture(scope="module")
+def jax_offsets_apply():
+    """The JAX stereodpnet_plus eval with `return_offsets` set, jitted."""
+    opt = Configuration("train_synthetic_stereodpnet_plus", make_workspace=False).get_config()
+    opt.model.return_offsets = True
+    model = jax_model_selector(opt)
+    return jax.jit(lambda v, b: model.apply(v, b, train=False))
+
+
+@pytest.mark.parametrize("weights", ["seeded-noisy-offsets", "plateau-checkpoint"])
+def test_return_offsets_matches_jax(jax_side, jax_offsets_apply, weights):
+    """With `return_offsets` set, both packages add the ANM deform convs'
+    offsets (after the offset clamp) as anm_offset1 / anm_offset2, in JAX's
+    layout [B, D, h, w, 81]; the port's agree with JAX's to ref_feature's
+    tolerance (f32 through the tower, cost volume and aggregation)."""
+    weight_sets, _, batch = jax_side
+    v = weight_sets[weights]
+    ref = jax.tree_util.tree_map(np.asarray, jax_offsets_apply(v, batch))
+    config = load_config("stereodpnet_plus", model_overrides={"return_offsets": True})
+    got = Predictor(config, state_dict_from_jax(v["params"], v["batch_stats"]), device="cpu",
+                    dtype=torch.float32)(_tiny_batch(1, HW, HW))
+    assert set(got) == set(ref)
+    for key in ("anm_offset1", "anm_offset2"):
+        assert tuple(got[key].shape) == ref[key].shape == (1, 4, HW // 4, HW // 4, 81), key
+        np.testing.assert_allclose(got[key].numpy(), ref[key], rtol=1e-4, atol=1e-4, err_msg=key)
+
+
+def test_offsets_only_on_request(jax_side):
+    """Without `return_offsets` neither package returns the offsets."""
+    weight_sets, apply, batch = jax_side
+    v = weight_sets["seeded-noisy-offsets"]
+    ref = apply(v, batch)
+    got = Predictor(load_config("stereodpnet_plus"), state_dict_from_jax(v["params"], v["batch_stats"]),
+                    device="cpu", dtype=torch.float32)(_tiny_batch(1, HW, HW))
+    assert set(got) == set(ref) == {"pred_depth", "prob_depth", "pred_normal", "ref_feature"}
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port leaves jax, flax and the JAX
     package out of sys.modules."""
