@@ -9,25 +9,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (one nvcc per source, all at once), print the build seconds and each
      entry function's registers, shared memory and spill bytes from the
      build log; a tensor-core kernel (the bf16 routes of K1, of K5 and T1,
-     of K2 and of T4) that spills, or one missing from the log, fails;
-  3. check each forward kernel (K1, K3, K5) against its plain PyTorch
+     of K2 and of T4) or an instantiation of K3 or K4 (each dtype, D = 1..16)
+     that spills, or one missing from the log, fails;
+  3. check each forward kernel (K1, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
      in bf16 and f32 (TF32 off); each K1 check names its route, the
      tensor cores for bf16 and the SIMT kernel for f32;
   3b. the same for the backward kernels at the train path's shapes: K2 (all
      four gradients, both apertures, a quarter of the offsets whole numbers
      and some on the window bound; each check names its route, the
-     tensor cores for bf16 and the SIMT kernel for f32) and K4;
+     tensor cores for bf16 and the SIMT kernel for f32);
   3c. K1 (Cin 35 and 64, both apertures), K5 (Cin 35 and 64), T1 (Co 32
      and 64, without and with the folded BatchNorm and ReLU) and K2 (Cin 35
      and 64, both apertures) at small ragged shapes (`EDGE_SHAPES`: M no
      multiple of a tile, H or W below 3, D = 1), bf16 and f32;
+  3d. K3 at the serving batch and K4 at the train batch, at the paths'
+     coarse shape for D = 8, 5 and 16 and at (50, 36) for every D = 1..16
+     (each instantiation), then logits of scale 30 with a cell of planes
+     near -200 and one whose bins all underflow below the max over its
+     planes, f32 and bf16; K4 twice on the same inputs, bit for bit;
   4. time each forward kernel, its plain version and, for K5, cuDNN's
      conv3d (which the port never calls) in NCDHW and in channels_last_3d
      (the kernel's own NDHWC), the faster of the two as its `library_ms`,
      with CUDA events; one `K1_run` and one `K5_run` line per Cin (K1's
      time includes its operands' packing);
-  4b. the same for K2 and K4 at the train path's shapes;
+  4b. the same for K2 at the train path's shapes;
+  4c. K3 (serving shape) and K4 (train shape) in bf16, with CUDA events and
+     on the device alone (`tools.device_ms`, the union of the device
+     intervals: the host's dispatch left out), beside their plain versions;
   5. serve 3 request batches of 4 dual-pixel pairs at 768x576 in bf16
      through `Predictor` (seeded weights, non-zero offset heads): shapes,
      finiteness, launch counts (K1 +2, K5 +2, K3 +1 per forward), and a
@@ -59,7 +68,8 @@ not a check).
 The line before the last is the `kernels` JSON with nine rows (launches:
 K1-K5 the train path's run of phase 7, `launches_serving` phase 5's; T1-T4
 the tools' measurements in phase 9, whose T rows sum the runs' times and
-bounds); the last line is {"ok": true, "device": {...}}.
+bounds; K3 and K4 also carry `device_ms`, phase 4c's time on the device
+alone); the last line is {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -162,9 +172,10 @@ def ptxas_report(log: str) -> list[dict]:
 
 def print_build_report(report: dict) -> None:
     """Phase 2's report: each entry function's registers, shared memory
-    (static, and for the tensor-core kernels the dynamic shared memory
-    their C entry points report) and spill bytes; fails if a tensor-core
-    kernel spills or one is missing from the log."""
+    (static, and for the tensor-core kernels and K4 the dynamic shared
+    memory their C entry points report) and spill bytes; fails if a
+    tensor-core kernel or an instantiation of K3 or K4 spills or is missing
+    from the log."""
     import ctypes
 
     from dualpixelface_tpu_torch.ops.kernels import _build
@@ -184,11 +195,20 @@ def print_build_report(report: dict) -> None:
                     smem("deform_conv3d_bwd", "dpf_deform_conv3d_bwd_tc_smem_bytes") for cp in (40, 64)})
     dynamic.update({("deform_conv3d", "deform_fwd_tc_kernel", cp):
                     smem("deform_conv3d", "dpf_deform_conv3d_tc_smem_bytes", cp) for cp in (40, 64)})
+    # K3's and K4's instantiations: each dtype and D = 1..16; none may spill
+    fsam = {(k, t, d) for k in ("fwd", "bwd") for t in ("f", "13__nv_bfloat16") for d in range(1, 17)}
     seen = set()
     for name, r in report.items():
         for f in ptxas_report(r["log"]):
             line = (f"ptxas {name}: {f['function']}: {f.get('registers')} registers, {f.get('static_smem')} bytes "
                     f"static smem, spill stores {f.get('spill_stores')} / loads {f.get('spill_loads')} bytes")
+            if m := re.search(r"fsam_(fwd|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)E", f["function"]):
+                key = (m.group(1), m.group(2), int(m.group(3)))
+                fsam.discard(key)
+                if key[0] == "bwd":
+                    line += f", dynamic smem {smem('fused_softargmin_bwd', 'dpf_fused_softargmin_bwd_smem_bytes', key[2])} bytes"
+                if f.get("spill_stores") != 0 or f.get("spill_loads") != 0:
+                    fail(f"the K3/K4 kernel {f['function']} spills: {f}")
             if m := re.search(r"(conv3d_tc_kernel|dot_bf16_kernel|deform_bwd_tc_kernel|deform_fwd_tc_kernel)ILi(\d+)E", f["function"]):
                 key = (name, m.group(1), int(m.group(2)))
                 seen.add(key)
@@ -198,6 +218,8 @@ def print_build_report(report: dict) -> None:
             print(line, flush=True)
     if seen != set(dynamic):
         fail(f"the build log reports tensor-core kernels {sorted(seen)}, not {sorted(dynamic)}")
+    if fsam:
+        fail(f"the build log lacks K3/K4 instantiations {sorted(fsam)}")
 
 
 def compare(name: str, got, ref, dtype_name: str, rel_tol: float | None = None) -> float:
@@ -247,16 +269,14 @@ def kernel_inputs(torch, gen, cin, dtype, shape=ANM_SHAPE, on_bound=False):
 
 def check_and_time_kernels(torch):
     from dualpixelface_tpu_torch.tools import cuda_ms, cudnn_conv3d_calls
-    from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_fused, deform_conv3d_plain, fwd_route
-    from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin, fused_softargmin_plain
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
-    err = {"K1": 0.0, "K3": 0.0, "K5": 0.0}
+    err = {"K1": 0.0, "K5": 0.0}
     timing = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "flops": 0.0, "bytes": 0.0, "flops_f32": 0.0}
               for k in err}
 
@@ -307,23 +327,6 @@ def check_and_time_kernels(torch):
             k5["flops"] += run["flops"]
             k5["bytes"] += sum(t.numel() * t.element_size() for t in (x, w_off, b_off)) + m * 81 * 2
 
-    disp = regression_disparities(-4, 12, 8, 4)
-    for dtype, dname in ((torch.float32, "float32"), (bf16, "bfloat16")):
-        for hw in ((H // 4, W // 4), (50, 36)):  # the serving shape; 4h % 32 != 0
-            cost = (torch.randn((B, 8) + hw, generator=gen, device="cuda") * 3.0).to(dtype)
-            e = compare(f"K3 fused_softargmin h,w={hw}", fused_softargmin(cost, disp, 4),
-                        fused_softargmin_plain(cost, disp, 4), dname)
-            if dtype == bf16 and hw == (H // 4, W // 4):
-                err["K3"] = e
-                k3 = timing["K3"]
-                k3["ms"] = cuda_ms(lambda: fused_softargmin(cost, disp, 4), 20)
-                k3["plain_ms"] = cuda_ms(lambda: fused_softargmin_plain(cost, disp, 4), 5)
-                d, h, w = 8, hw[0], hw[1]
-                npix = B * 16 * h * w
-                # per output pixel: 2x2 interpolation of D planes (9 ops each),
-                # per bin a 2-tap D interpolation and the online softmax update
-                k3["flops"] = npix * (9.0 * d + 9.0 * 4 * d + 1.0)
-                k3["bytes"] = cost.numel() * cost.element_size() + npix * 2
     return err, timing
 
 
@@ -333,16 +336,12 @@ def check_and_time_backward_kernels(torch, err, timing):
     bf16, the train dtype. The plain K2 at this shape holds ~30 GB of
     autograd state, so each comparison frees it before the next."""
     from dualpixelface_tpu_torch.tools import cuda_ms
-    from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain
-    from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin_bwd, fused_softargmin_bwd_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16 = torch.bfloat16
-    err.update({"K2": 0.0, "K4": 0.0})
-    for k in ("K2", "K4"):
-        timing[k] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "flops": 0.0, "bytes": 0.0,
-                     "flops_f32": 0.0}
+    err["K2"] = 0.0
+    timing["K2"] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "flops": 0.0, "bytes": 0.0, "flops_f32": 0.0}
     m = math.prod(TRAIN_ANM_SHAPE)
     for dtype, dname in ((torch.float32, "float32"), (bf16, "bfloat16")):
         for cin in CINS:
@@ -371,23 +370,81 @@ def check_and_time_backward_kernels(torch, err, timing):
             # x, offset, weight and g read; gx, goff and gw written
             k2["bytes"] += sum(t.numel() * t.element_size() for t in (x, off, w)) * 2 + g.numel() * g.element_size()
 
-    disp = regression_disparities(-4, 12, 8, 4)
-    for dtype, dname in ((torch.float32, "float32"), (bf16, "bfloat16")):
-        for hw in ((H // 4, W // 4), (50, 36)):  # the train shape; 4h % 32 != 0
-            cost = (torch.randn((TB, 8) + hw, generator=gen, device="cuda") * 3.0).to(dtype)
+
+# K3 and K4 (phase 3d): the coarse plane counts held at the paths' shape
+# (the configs' 8, and 5 and 16; at (50, 36) every D the kernels are
+# instantiated for), and the wide-logit cases: logits of scale 30; one
+# coarse cell whose planes are all near -200, past exp's f32 range
+# unshifted (near -1e4 the plain version's own f32 rounding strays further
+# from the exact value than REL_TOL: tests/test_torch_softargmin_pack.py);
+# one whose plane 3 is 0 and the others -3000, so every bin of the pixels
+# around it lies more than f32's range below the max over the planes (both
+# kernels shift by the largest bin)
+SOFTARGMIN_PLANES = (8, 5, 16)
+
+
+def softargmin_cost(torch, gen, b, d, hw, dtype, wide=False):
+    cost = torch.randn((b, d) + hw, generator=gen, device="cuda") * (30.0 if wide else 3.0)
+    if wide:
+        cost[:, :, 1, 2] = -200.0 + torch.randn((b, d), generator=gen, device="cuda")
+        cost[:, :, 5, 5] = -3000.0
+        cost[:, 3, 5, 5] = 0.0
+    return cost.to(dtype)
+
+
+def check_and_time_softargmin(torch, err, timing):
+    """Phases 3d and 4c: K3 at the serving batch (4) and K4 at the train
+    batch (2), at the path's coarse shape (192 x 144) for D in
+    SOFTARGMIN_PLANES and at (50, 36) (4h % 32 != 0) for D = 1..16, in f32
+    and bf16, then the wide-logit cases at (50, 36), D = 8, against their
+    plain versions
+    within REL_TOL; K4 twice on the same inputs, which must agree bit for
+    bit. Then each kernel's time at its path's shape in bf16: event-timed
+    (`cuda_ms`, the host's dispatch included) and on the device alone
+    (`device_ms`), beside its plain version and its bound (bytes, f32
+    operations and exps, `tools.bench_softargmin.work`)."""
+    from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import (
+        fused_softargmin, fused_softargmin_bwd, fused_softargmin_bwd_plain, fused_softargmin_plain)
+    from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
+    from dualpixelface_tpu_torch.tools import bench_softargmin, cuda_ms, device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(d, (H // 4, W // 4), False) for d in SOFTARGMIN_PLANES]
+    cases += [(d, (50, 36), False) for d in range(1, 17)]
+    cases.append((8, (50, 36), True))
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for d, hw, wide in cases:
+            disp = regression_disparities(-4, 12, d, 4)
+            label = f"D={d} h,w={hw}" + (" wide logits" if wide else "")
+            cost = softargmin_cost(torch, gen, B, d, hw, dtype, wide)
+            e = compare(f"K3 fused_softargmin B={B} {label}", fused_softargmin(cost, disp, 4),
+                        fused_softargmin_plain(cost, disp, 4), dname)
+            if dtype == torch.bfloat16 and (d, hw, wide) == cases[0]:
+                err["K3"] = e
+            cost = softargmin_cost(torch, gen, TB, d, hw, dtype, wide)
             g = torch.randn((TB, 4 * hw[0], 4 * hw[1]), generator=gen, device="cuda").to(dtype)
-            e = compare(f"K4 fused_softargmin_bwd h,w={hw}", fused_softargmin_bwd(cost, g, disp, 4),
+            got = fused_softargmin_bwd(cost, g, disp, 4)
+            e = compare(f"K4 fused_softargmin_bwd B={TB} {label}", got,
                         fused_softargmin_bwd_plain(cost, g, disp, 4), dname)
-            if dtype == bf16 and hw == (H // 4, W // 4):
+            if dtype == torch.bfloat16 and (d, hw, wide) == cases[0]:
                 err["K4"] = e
-                k4 = timing["K4"]
-                k4["ms"] = cuda_ms(lambda: fused_softargmin_bwd(cost, g, disp, 4), 20)
-                k4["plain_ms"] = cuda_ms(lambda: fused_softargmin_bwd_plain(cost, g, disp, 4), 3)
-                d, h, w = 8, hw[0], hw[1]
-                npix = TB * 16 * h * w
-                # twice K3's per-pixel work: recompute, then the transpose
-                k4["flops_f32"] = 2 * npix * (9.0 * d + 9.0 * 4 * d + 1.0)
-                k4["bytes"] = 2 * cost.numel() * cost.element_size() + g.numel() * g.element_size()
+            if not torch.equal(got, fused_softargmin_bwd(cost, g, disp, 4)):
+                fail(f"K4 {label} {dname}: two calls on the same inputs differ")
+        print(f"check K4 {dname}: two calls on the same inputs agree bit for bit in every case", flush=True)
+
+    disp = regression_disparities(-4, 12, 8, 4)
+    cost = softargmin_cost(torch, gen, B, 8, (H // 4, W // 4), torch.bfloat16)
+    tcost = softargmin_cost(torch, gen, TB, 8, (H // 4, W // 4), torch.bfloat16)
+    g = torch.randn((TB, H, W), generator=gen, device="cuda").to(torch.bfloat16)
+    calls = {"K3": (lambda: fused_softargmin(cost, disp, 4), lambda: fused_softargmin_plain(cost, disp, 4),
+                    tuple(cost.shape)),
+             "K4": (lambda: fused_softargmin_bwd(tcost, g, disp, 4),
+                    lambda: fused_softargmin_bwd_plain(tcost, g, disp, 4), tuple(tcost.shape))}
+    for k, (fn, plain, shape) in calls.items():
+        timing[k] = {"ms": cuda_ms(fn, 20), "device_ms": device_ms(fn, 20), "plain_ms": cuda_ms(plain, 3),
+                     "library_ms": None, "flops": 0.0, **bench_softargmin.work(k, shape)}
+        print(json.dumps({f"{k}_run": {"shape": list(shape), **timing[k]}}), flush=True)
 
 
 def check_edge_shapes(torch):
@@ -762,7 +819,7 @@ def main() -> int:
     from dualpixelface_tpu_torch.config import load_config
     from dualpixelface_tpu_torch.ops.kernels import _build
     from dualpixelface_tpu_torch.serve import seeded_state_dict
-    from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, bound_ms
+    from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, PEAK_SFU, bound_ms
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -775,6 +832,7 @@ def main() -> int:
 
     err, timing = check_and_time_kernels(torch)
     check_and_time_backward_kernels(torch, err, timing)
+    check_and_time_softargmin(torch, err, timing)
     check_edge_shapes(torch)
     config = load_config("stereodpnet_plus")
     sd = seeded_state_dict(config)
@@ -794,14 +852,16 @@ def main() -> int:
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5"):
         t = timing[k]
-        # contractions at their type's peak, other f32 work on the CUDA cores
-        b_ms, b_by = bound_ms(t["bytes"], (t["flops"], PEAK_F32 if k == "K3" else PEAK_BF16),
-                              (t.get("flops_f32", 0.0), PEAK_F32))
+        # contractions at their type's peak, other f32 work on the CUDA
+        # cores, exps on the special-function units
+        b_ms, b_by = bound_ms(t["bytes"], (t["flops"], PEAK_BF16), (t.get("flops_f32", 0.0), PEAK_F32),
+                              (t.get("exps", 0.0), PEAK_SFU))
         kernels.append({
             "name": f"{k} {NAMES[k]}", "route": "cuda",
             "source": f"dualpixelface_tpu_torch/csrc/{SOURCES[k]}", "replaces": TPU_SITES[k],
             "launches": launches[k], "launches_serving": serving[k], "max_abs_err": err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library_ms"],
+            **({"device_ms": t["device_ms"]} if "device_ms" in t else {}),
         })
     for k, row in tools.items():
         kernels.append({
@@ -812,7 +872,7 @@ def main() -> int:
             "bound_by": "operations" if 2 * row["bound_ops_ms"] >= row["bound_ms"] else "bytes",
             "library_ms": row["library_ms"], "runs": len(row["runs"]),
         })
-    print(json.dumps({"work": {k: {key: v for key, v in timing[k].items() if key.startswith(("flops", "bytes"))}
+    print(json.dumps({"work": {k: {key: v for key, v in timing[k].items() if key.startswith(("flops", "bytes", "exps"))}
                                for k in timing}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,6 @@
-// Shared pieces of the port's CUDA kernels: dtype conversions, the f32 ->
-// bf16 cast of the backward kernels' accumulators, and the SIMT im2col-GEMM
-// tile of the f32 routes of K1 (deform conv), K5 and T1 (dense 3x3x3 convs;
-// their bf16 routes run on the tensor cores, conv_tc.cuh).
+// Shared pieces of the port's CUDA kernels: dtype conversions and the SIMT
+// im2col-GEMM tile of the f32 routes of K1 (deform conv), K5 and T1 (dense
+// 3x3x3 convs; their bf16 routes run on the tensor cores, conv_tc.cuh).
 //
 // The GEMM tile is a plain SIMT design: a block of 256 threads (16 x 16)
 // owns BM = 128 output voxels x all Co <= 16*TN output channels; each thread
@@ -34,20 +33,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // Round an f32 value through the storage type T (identity for f32).
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
-}
-
-// dst[i] = bf16(src[i]), round to nearest even: the one rounding of a
-// gradient the backward kernels accumulate in an f32 buffer.
-__global__ void cast_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
-                                 long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) dst[i] = __float2bfloat16_rn(src[i]);
-}
-
-// Launch cast_bf16_kernel over n elements on s; returns the launch error.
-inline int cast_bf16(const float* src, void* dst, long long n, cudaStream_t s) {
-  cast_bf16_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(src, static_cast<__nv_bfloat16*>(dst), n);
-  return (int)cudaGetLastError();
 }
 
 // The TM output voxels m0 + 16 r of an implicit-GEMM conv thread: the flat

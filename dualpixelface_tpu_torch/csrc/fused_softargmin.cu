@@ -1,4 +1,4 @@
-// K3: fused x`factor` align-corners trilinear upsample + soft-argmin.
+// K3: fused x4 align-corners trilinear upsample + soft-argmin.
 //
 // Replaces the TPU kernel `fused_softargmin` -> `_fsam` (`_kernel`;
 // dualpixelface_tpu/ops/kernels/fused_softargmin.py:238, call at :181).
@@ -7,89 +7,145 @@
 // computed in f32 and written in the input dtype. The full-resolution
 // logit volume is never materialised.
 //
-// Bound on the H100: f32 operations on the CUDA cores. At the main-path
-// shape it moves ~5.3 MB in bf16 (coarse volume read once, one value per
-// output pixel written; 1.6 us at 3.35 TB/s) but does ~0.6 GFLOP of f32
-// interpolation, exp and softmax updates (32 bins per pixel; ~9.5 us at
-// 67 TFLOP/s). Design: one thread per output pixel, a row of 128 pixels per
-// block. Each 1-D operator row of the align-corners matrices (built on the
-// host by `_linear_matrix`) has at most two non-zeros, passed as (index,
-// weight) pairs; the thread interpolates each coarse plane from its 2x2
-// neighbours (x, then y), keeps the D interpolated values in shared memory,
-// and runs an online softmax (running max, sum and weighted sum) over the
-// upsampled bins. Neighbouring threads share their coarse reads in L1.
-// No constraint on the output height (the TPU kernel needed 4h % 32 == 0).
-#include <math.h>
+// Bound on the H100: the exps. At the serving shape ([4, 8, 192, 144] ->
+// 768 x 576, 32 bins) it moves ~5.3 MB in bf16 (1.6 us at 3.35 TB/s) and
+// does ~0.42 GFLOP of f32 work (6.3 us at 67 TFLOP/s), but takes 56.6 M
+// exps, one per bin and pixel, on the special-function units (16 per clock
+// per SM: 13.5 us). Design (fsam.cuh): one thread per quad of 4 output
+// pixels along x, which share 3 coarse columns, so each plane costs 6
+// coarse loads per quad; the D operator's taps are compile-time constants
+// (one instantiation per D), its weights and the bin values kernel
+// parameters, the planes stay in registers; the softmax is stabilised by
+// the max over the planes, so each bin takes one exp2 and the running
+// rescales of an online softmax are gone (a pixel whose exps underflow is
+// redone with the largest bin); the 4 outputs go out as one vector store.
+// Any output height; D <= 16.
+#include <cstring>
 
-#include "common.cuh"
+#include "fsam.cuh"
 
 namespace {
 
-using namespace dpf;
+using namespace fsam;
 
-constexpr int MAXD = 16;
-constexpr int ROW = 128;
+constexpr int THREADS = 256;
+
+template <typename T> struct Vec4;
+template <> struct Vec4<float> {
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec4<__nv_bfloat16> {
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[4]) {
+    __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<unsigned*>(&a);
+    u.y = *reinterpret_cast<unsigned*>(&b);
+    *reinterpret_cast<uint2*>(p) = u;
+  }
+};
+
+// One pixel's disparity, sum_j e_j dv_j / sum_j e_j, from the quad's
+// columns R and the pixel's weights u on them: the bins shifted by the max
+// over the planes, or (EXACT) by the largest bin. `low` reports exps that
+// summed below TINY (the result is then not used).
+template <int D, bool EXACT>
+__device__ __forceinline__ float pixel_disparity(const float (&R)[3][D], float4 u, const Bins& bn, bool& low) {
+  float q[D];
+  pixel_planes<D>(R, u, q);
+  if (EXACT)
+    shift_by_max_bin<D>(q, bn);
+  else
+    shift_by_planes<D>(q);
+  float sum = 0.0f, num = 0.0f;
+#pragma unroll
+  for (int j = 0; j < FACTOR * D; ++j) {
+    const float e = ex2(bin_logit<D>(q, bn, j));
+    sum += e;
+    num = fmaf(bn.dv[j], e, num);
+  }
+  low = sum < TINY;
+  return num / sum;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+fsam_fwd_kernel(const T* __restrict__ cost, T* __restrict__ out, int B, int h, int w,
+                const int2* __restrict__ ytap, const float2* __restrict__ ywt,
+                const float4* __restrict__ xu, const __grid_constant__ Bins bn) {
+  const int Hp = FACTOR * h;
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= (long long)B * Hp * w) return;
+  const int q = (int)(t % w);
+  const long long by = t / w;
+  const int Y = (int)(by % Hp), b = (int)(by / Hp);
+
+  const int2 yi = __ldg(ytap + Y);
+  const float2 yw = __ldg(ywt + Y);
+  const Quad qd(q, w);
+  float R[3][D];
+  rows_interp<T, D>(cost + (size_t)b * D * h * w, h, w, yi.x, yi.y, yw.x, yw.y, qd, R);
+
+  float res[4];
+  unsigned redo = 0;  // pixels whose exps underflowed: redone below, rarely
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    bool low;
+    res[k] = pixel_disparity<D, false>(R, __ldg(xu + 4 * q + k), bn, low);
+    redo |= (unsigned)low << k;
+  }
+  T* o = out + ((size_t)b * Hp + Y) * (FACTOR * w) + 4 * q;
+  Vec4<T>::store(o, res);
+  if (redo) {
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      bool low;
+      if (redo >> k & 1) o[k] = from_f32<T>(pixel_disparity<D, true>(R, __ldg(xu + 4 * q + k), bn, low));
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* cost, void* out, int B, int h, int w, const int* ytap, const float* ywt, const float* xu,
+           const Bins& bn, cudaStream_t s) {
+  const long long n = (long long)B * FACTOR * h * w;
+  fsam_fwd_kernel<T, D><<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+      static_cast<const T*>(cost), static_cast<T*>(out), B, h, w, reinterpret_cast<const int2*>(ytap),
+      reinterpret_cast<const float2*>(ywt), reinterpret_cast<const float4*>(xu), bn);
+  return (int)cudaGetLastError();
+}
 
 template <typename T>
-__global__ void __launch_bounds__(ROW)
-fused_softargmin_kernel(const T* __restrict__ cost, T* __restrict__ out, int D, int h, int w,
-                        int Dp, int Hp, int Wp, const int* __restrict__ didx,
-                        const float* __restrict__ dwt, const int* __restrict__ yidx,
-                        const float* __restrict__ ywt, const int* __restrict__ xidx,
-                        const float* __restrict__ xwt, const float* __restrict__ dv) {
-  __shared__ float planes[MAXD][ROW];
-  const int X = blockIdx.x * ROW + threadIdx.x;
-  const int Y = blockIdx.y, b = blockIdx.z;
-  if (X >= Wp) return;
-
-  const int y0 = yidx[2 * Y], y1 = yidx[2 * Y + 1];
-  const float wy0 = ywt[2 * Y], wy1 = ywt[2 * Y + 1];
-  const int x0 = xidx[2 * X], x1 = xidx[2 * X + 1];
-  const float wx0 = xwt[2 * X], wx1 = xwt[2 * X + 1];
-  const T* cb = cost + (size_t)b * D * h * w;
-  for (int d = 0; d < D; ++d) {
-    const T* p = cb + (size_t)d * h * w;
-    const float r0 = wx0 * to_f32(p[y0 * w + x0]) + wx1 * to_f32(p[y0 * w + x1]);
-    const float r1 = wx0 * to_f32(p[y1 * w + x0]) + wx1 * to_f32(p[y1 * w + x1]);
-    planes[d][threadIdx.x] = wy0 * r0 + wy1 * r1;
+int dispatch(int D, const void* cost, void* out, int B, int h, int w, const int* ytap, const float* ywt,
+             const float* xu, const Bins& bn, cudaStream_t s) {
+  switch (D) {
+#define FSAM_CASE(d) \
+  case d:            \
+    return launch<T, d>(cost, out, B, h, w, ytap, ywt, xu, bn, s);
+    FSAM_CASE(1) FSAM_CASE(2) FSAM_CASE(3) FSAM_CASE(4) FSAM_CASE(5) FSAM_CASE(6) FSAM_CASE(7) FSAM_CASE(8)
+    FSAM_CASE(9) FSAM_CASE(10) FSAM_CASE(11) FSAM_CASE(12) FSAM_CASE(13) FSAM_CASE(14) FSAM_CASE(15) FSAM_CASE(16)
+#undef FSAM_CASE
   }
-
-  float mx = -INFINITY, sum = 0.0f, num = 0.0f;
-  for (int j = 0; j < Dp; ++j) {
-    const float l = dwt[2 * j] * planes[didx[2 * j]][threadIdx.x] +
-                    dwt[2 * j + 1] * planes[didx[2 * j + 1]][threadIdx.x];
-    const float mn = fmaxf(mx, l);
-    const float scale = expf(mx - mn);
-    const float e = expf(l - mn);
-    sum = sum * scale + e;
-    num = num * scale + dv[j] * e;
-    mx = mn;
-  }
-  out[((size_t)b * Hp + Y) * Wp + X] = from_f32<T>(num / sum);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// cost [B, D, h, w] (D <= 16), out [B, Hp, Wp]; one dtype (is_bf16 selects
-// bf16, else f32). didx/dwt [Dp, 2], yidx/ywt [Hp, 2], xidx/xwt [Wp, 2]:
-// the two (index, weight) taps of each interpolation-operator row (weight 0
-// where a row has one tap); dv [Dp] the bin values. All on the device.
-// Returns cudaGetLastError().
-extern "C" int dpf_fused_softargmin(const void* cost, void* out, int B, int D, int h, int w,
-                                    int Dp, int Hp, int Wp, const int* didx, const float* dwt,
-                                    const int* yidx, const float* ywt, const int* xidx,
-                                    const float* xwt, const float* dv, int is_bf16,
+// cost [B, D, h, w] (1 <= D <= 16), out [B, 4h, 4w]; one dtype (is_bf16
+// selects bf16, else f32), on the device. ytap int32 [4h, 2] and ywt f32
+// [4h, 2]: each output row's two coarse rows and weights; xu f32 [4w, 4]:
+// each output column's weights on coarse columns q-1, q, q+1 of its quad
+// q = x / 4 (and a 0); both on the device. bins: the host's f32 [5, 64]
+// (`Bins`: per bin its lo and hi plane weights, its value and the weights
+// times the value, taps as `tap_lo`/`tap_hi`), passed to the kernel by value. One launch; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for D outside 1..16.
+extern "C" int dpf_fused_softargmin(const void* cost, void* out, int B, int D, int h, int w, const int* ytap,
+                                    const float* ywt, const float* xu, const float* bins, int is_bf16,
                                     void* stream) {
-  if (D > MAXD) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((Wp + ROW - 1) / ROW), (unsigned)Hp, (unsigned)B);
+  Bins bn;
+  memcpy(&bn, bins, sizeof bn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    fused_softargmin_kernel<__nv_bfloat16><<<grid, ROW, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(cost), static_cast<__nv_bfloat16*>(out), D, h, w, Dp, Hp,
-        Wp, didx, dwt, yidx, ywt, xidx, xwt, dv);
-  else
-    fused_softargmin_kernel<float><<<grid, ROW, 0, s>>>(
-        static_cast<const float*>(cost), static_cast<float*>(out), D, h, w, Dp, Hp, Wp, didx, dwt,
-        yidx, ywt, xidx, xwt, dv);
-  return (int)cudaGetLastError();
+  return is_bf16 ? dispatch<__nv_bfloat16>(D, cost, out, B, h, w, ytap, ywt, xu, bn, s)
+                 : dispatch<float>(D, cost, out, B, h, w, ytap, ywt, xu, bn, s);
 }

@@ -1,174 +1,210 @@
-// K4: backward of the fused x`factor` upsample + soft-argmin (K3).
+// K4: backward of the fused x4 upsample + soft-argmin (K3).
 //
 // Replaces the TPU kernel `_fsam_bwd` (`_bwd_kernel`;
 // dualpixelface_tpu/ops/kernels/fused_softargmin.py:198, call at :221).
-// With p = softmax(logits) over the Dp upsampled bins of an output pixel and
+// With p = softmax(logits) over the 4D upsampled bins of an output pixel and
 // out = sum_j p_j dv_j, the cotangent of the logits is
 //   glogit_j = g * p_j * (dv_j - out)
 // and the cost gradient is U^T glogit for the separable align-corners
-// operator U = Wd x Wy x Wx: dcost [B, D, h, w], accumulated in f32.
+// operator U = Wd x Wy x Wx: dcost [B, D, h, w], summed in f32 and written
+// once in the cost's dtype.
 //
-// Bound on the H100: f32 operations on the CUDA cores. At the train path's
-// shape ([2, 8, 192, 144] -> 768 x 576) it moves ~5 MB in bf16 (cost and g
-// read once, dcost written once) but recomputes K3's interpolation and
-// softmax and adds the transposed interpolation, about twice K3's f32
-// operations. Design: one thread per output pixel, a row of 128 pixels per
-// block, as K3. Each thread recomputes its D interpolated coarse planes and
-// the online softmax exactly as K3 does, then forms the glogits bin by bin,
-// folds them back onto the D planes through the two D taps of each bin, and
-// spreads each plane's gradient over the (at most) 2 x 2 coarse cells of its
-// pixel. The block's pixels share one output row, so they touch at most two
-// coarse rows and a short span of coarse columns: the spread goes into a
-// shared-memory f32 tile with shared atomics, and the tile is then added to
-// dcost with one global f32 atomicAdd per cell (a cell outside the span,
-// which no align-corners x4 operator produces, goes straight to global
-// memory). A last pass casts dcost to bf16 when the cost is bf16.
-#include <math.h>
+// Bound on the H100: the exps. At the train path's shape ([2, 8, 192, 144]
+// -> 768 x 576) it moves ~3.5 MB in bf16 (cost and g read once, dcost
+// written once: 1.0 us) and does ~0.43 GFLOP of f32 work, K3's
+// interpolation and softmax and the transposed interpolation (6.4 us at
+// 67 TFLOP/s), but takes 28.3 M exps on the special-function units (6.8 us).
+//
+// Design: owner computes. A block owns a tile of coarse cells, all D planes
+// x RB coarse rows x SPAN coarse columns, and recomputes every output pixel
+// whose taps touch it: the output rows of its band (`bands`, from the host:
+// ~4 RB + 4 rows) x the quads of its columns and one on each side. Each lane
+// of a warp takes one quad (fsam.cuh) of one output row: it recomputes the
+// pixels' planes and bins as K3 does (one exp2 per bin, shifted by the
+// largest bin), folds the glogits onto
+// the planes as it goes (per plane, S0 = sum of w e and S1 = sum of w dv e
+// over the plane's bins, so gd = g/sum (S1 - out S0) with no stored exps),
+// keeps each pixel's gd on the quad's middle column and hands its shares
+// of the outer two to the neighbouring lanes by warp shuffles: lane L then
+// holds the whole of its column's share (lanes 0 and 31 only feed their
+// neighbours). The block's warps split the band's output rows; each adds
+// its rows into its own shared-memory copy of the tile (one lane per
+// column: no atomics), and the copies are summed in a fixed order and
+// written once. One launch, no f32 scratch in device memory, and the same
+// sums in the same order on every run.
+#include <cstring>
 
-#include "common.cuh"
+#include "fsam.cuh"
 
 namespace {
 
-using namespace dpf;
+using namespace fsam;
 
-constexpr int MAXD = 16;
-constexpr int ROW = 128;
-constexpr int SPAN = 40;  // coarse columns one block's 128 pixels can touch (34 at x4)
+constexpr int NW = 8;     // warps per block, each a share of the band's output rows
+constexpr int RB = 8;     // coarse rows per band
+constexpr int SPAN = 30;  // coarse columns a block owns: lanes 1..30 of its warps
+constexpr int THREADS = NW * 32;
+
+// One pixel's bins with q shifted: per plane S0 += w e, S1 += w dv e.
+template <int D>
+__device__ __forceinline__ void plane_sums(const float (&q)[D], const Bins& bn, float (&S0)[D], float (&S1)[D]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) S0[d] = S1[d] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < FACTOR * D; ++j) {
+    const float e = ex2(bin_logit<D>(q, bn, j));
+    S0[tap_lo<D>(j)] = fmaf(bn.wa[j], e, S0[tap_lo<D>(j)]);
+    S1[tap_lo<D>(j)] = fmaf(bn.wadv[j], e, S1[tap_lo<D>(j)]);
+    S0[tap_hi<D>(j)] = fmaf(bn.wb[j], e, S0[tap_hi<D>(j)]);
+    S1[tap_hi<D>(j)] = fmaf(bn.wbdv[j], e, S1[tap_hi<D>(j)]);
+  }
+}
+
+// One pixel's gd (into S1) from the quad's columns R, the pixel's weights
+// u on them and its cotangent g, the bins shifted by the largest.
+template <int D>
+__device__ __forceinline__ void pixel_gd(const float (&R)[3][D], float4 u, float g, const Bins& bn, float (&S1)[D]) {
+  float q[D], S0[D];
+  pixel_planes<D>(R, u, q);
+  shift_by_max_bin<D>(q, bn);
+  plane_sums<D>(q, bn, S0, S1);
+  float sum = 0.0f, num = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    sum += S0[d];
+    num += S1[d];
+  }
+  const float rs = __frcp_rn(sum), out = num * rs, gi = g * rs;
+#pragma unroll
+  for (int d = 0; d < D; ++d) S1[d] = gi * fmaf(-out, S0[d], S1[d]);
+}
+
+// Column q's share of a pixel's gd: its weight on the quad's middle column
+// stays, its shares of the outer columns go to the neighbouring lanes,
+// whose middle column they are. Every lane of the warp calls it.
+template <int D>
+__device__ __forceinline__ void gather_columns(float (&col)[D], float4 u, const float (&gd)[D]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    col[d] = fmaf(u.y, gd[d], col[d]) + __shfl_up_sync(0xffffffffu, u.z * gd[d], 1) +
+             __shfl_down_sync(0xffffffffu, u.x * gd[d], 1);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, D <= 8 ? 2 : 1)
+fsam_bwd_kernel(const T* __restrict__ cost, const T* __restrict__ gout, T* __restrict__ dcost, int h, int w,
+                const int2* __restrict__ ytap, const float2* __restrict__ ywt, const float4* __restrict__ xu,
+                const int2* __restrict__ bands, const __grid_constant__ Bins bn) {
+  extern __shared__ float acc[];  // [NW][RB][D][32]: each warp's copy of the tile
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * SPAN, r0 = blockIdx.y * RB, b = blockIdx.z;
+  const int Hp = FACTOR * h, Wp = FACTOR * w;
+  const int q = c0 - 1 + lane;  // this lane's quad and the column it gathers
+  const bool active = q >= 0 && q < w;
+
+  for (int i = threadIdx.x; i < NW * RB * D * 32; i += THREADS) acc[i] = 0.0f;
+  __syncthreads();
+
+  float* mine = acc + warp * RB * D * 32 + lane;
+  const T* cb = cost + (size_t)b * D * h * w;
+  const Quad qd(q, w);
+  const int2 band = __ldg(bands + blockIdx.y);
+  for (int Y = band.x + warp; Y < band.y; Y += NW) {  // warp-uniform
+    const int2 yi = __ldg(ytap + Y);
+    const float2 yw = __ldg(ywt + Y);
+    float R[3][D];
+    if (active) rows_interp<T, D>(cb, h, w, yi.x, yi.y, yw.x, yw.y, qd, R);
+    const T* grow = gout + ((size_t)b * Hp + Y) * Wp + 4 * q;
+    float col[D];  // column q's share of this output row
+#pragma unroll
+    for (int d = 0; d < D; ++d) col[d] = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float gd[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) gd[d] = 0.0f;
+      if (active) {
+        u = __ldg(xu + 4 * q + k);
+        pixel_gd<D>(R, u, to_f32(grow[k]), bn, gd);
+      }
+      gather_columns<D>(col, u, gd);
+    }
+    const bool r0in = yi.x >= r0 && yi.x < r0 + RB;
+    const bool r1in = yw.y != 0.0f && yi.y >= r0 && yi.y < r0 + RB;
+    float* row0 = mine + (yi.x - r0) * D * 32;
+    float* row1 = mine + (yi.y - r0) * D * 32;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (r0in) row0[d * 32] += yw.x * col[d];
+      if (r1in) row1[d * 32] += yw.y * col[d];
+    }
+  }
+  __syncthreads();
+
+  // the tile: lanes 1..30 of the copies, summed in warp order, written once
+  for (int i = threadIdx.x; i < RB * D * 32; i += THREADS) {
+    const int L = i & 31, d = (i >> 5) % D, r = i / (32 * D);
+    const int col = c0 - 1 + L, yc = r0 + r;
+    if (L == 0 || L == 31 || col >= w || yc >= h) continue;
+    float v = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) v += acc[k * RB * D * 32 + i];
+    dcost[(((size_t)b * D + d) * h + yc) * w + col] = from_f32<T>(v);
+  }
+}
+
+constexpr int smem_bytes(int D) { return NW * RB * D * 32 * (int)sizeof(float); }
+
+template <typename T, int D>
+int launch(const void* cost, const void* gout, void* dcost, int B, int h, int w, const int* ytap,
+           const float* ywt, const float* xu, const int* bands, const Bins& bn, cudaStream_t s) {
+  constexpr int smem = smem_bytes(D);
+  static const int attr = (int)cudaFuncSetAttribute(fsam_bwd_kernel<T, D>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != 0) return attr;
+  const dim3 grid((unsigned)((w + SPAN - 1) / SPAN), (unsigned)((h + RB - 1) / RB), (unsigned)B);
+  fsam_bwd_kernel<T, D><<<grid, THREADS, smem, s>>>(
+      static_cast<const T*>(cost), static_cast<const T*>(gout), static_cast<T*>(dcost), h, w,
+      reinterpret_cast<const int2*>(ytap), reinterpret_cast<const float2*>(ywt),
+      reinterpret_cast<const float4*>(xu), reinterpret_cast<const int2*>(bands), bn);
+  return (int)cudaGetLastError();
+}
 
 template <typename T>
-__global__ void __launch_bounds__(ROW)
-fsam_bwd_kernel(const T* __restrict__ cost, const T* __restrict__ gout, float* __restrict__ dcost,
-                int D, int h, int w, int Dp, int Hp, int Wp, const int* __restrict__ didx,
-                const float* __restrict__ dwt, const int* __restrict__ yidx,
-                const float* __restrict__ ywt, const int* __restrict__ xidx,
-                const float* __restrict__ xwt, const float* __restrict__ dv) {
-  __shared__ float planes[MAXD][ROW];
-  __shared__ float tile[MAXD][2][SPAN];
-  const int tid = threadIdx.x;
-  const int X0 = blockIdx.x * ROW, X = X0 + tid;
-  const int Y = blockIdx.y, b = blockIdx.z;
-  const bool active = X < Wp;
-
-  for (int e = tid; e < MAXD * 2 * SPAN; e += ROW) (&tile[0][0][0])[e] = 0.0f;
-
-  const int y0 = yidx[2 * Y], y1 = yidx[2 * Y + 1];
-  const float wy0 = ywt[2 * Y], wy1 = ywt[2 * Y + 1];
-  const int base = xidx[2 * X0];  // the block's first coarse column
-  int x0 = 0, x1 = 0;
-  float wx0 = 0.0f, wx1 = 0.0f;
-  float gd[MAXD];
-#pragma unroll
-  for (int d = 0; d < MAXD; ++d) gd[d] = 0.0f;
-
-  if (active) {
-    x0 = xidx[2 * X];
-    x1 = xidx[2 * X + 1];
-    wx0 = xwt[2 * X];
-    wx1 = xwt[2 * X + 1];
-    const T* cb = cost + (size_t)b * D * h * w;
-    for (int d = 0; d < D; ++d) {
-      const T* p = cb + (size_t)d * h * w;
-      const float r0 = wx0 * to_f32(p[y0 * w + x0]) + wx1 * to_f32(p[y0 * w + x1]);
-      const float r1 = wx0 * to_f32(p[y1 * w + x0]) + wx1 * to_f32(p[y1 * w + x1]);
-      planes[d][tid] = wy0 * r0 + wy1 * r1;
-    }
-
-    // the forward's online softmax, then its final max, sum and output
-    float mx = -INFINITY, sum = 0.0f, num = 0.0f;
-    for (int j = 0; j < Dp; ++j) {
-      const float l = dwt[2 * j] * planes[didx[2 * j]][tid] +
-                      dwt[2 * j + 1] * planes[didx[2 * j + 1]][tid];
-      const float mn = fmaxf(mx, l);
-      const float scale = expf(mx - mn);
-      const float e = expf(l - mn);
-      sum = sum * scale + e;
-      num = num * scale + dv[j] * e;
-      mx = mn;
-    }
-    const float out = num / sum;
-    const float ginv = to_f32(gout[((size_t)b * Hp + Y) * Wp + X]) / sum;
-
-    // glogit_j, folded onto the coarse planes through the bin's two D taps
-    for (int j = 0; j < Dp; ++j) {
-      const int da = didx[2 * j], db = didx[2 * j + 1];
-      const float wa = dwt[2 * j], wb = dwt[2 * j + 1];
-      const float l = wa * planes[da][tid] + wb * planes[db][tid];
-      const float gl = ginv * expf(l - mx) * (dv[j] - out);
-#pragma unroll
-      for (int d = 0; d < MAXD; ++d) {
-        if (d == da) gd[d] += wa * gl;
-        if (d == db) gd[d] += wb * gl;
-      }
-    }
+int dispatch(int D, const void* cost, const void* gout, void* dcost, int B, int h, int w, const int* ytap,
+             const float* ywt, const float* xu, const int* bands, const Bins& bn, cudaStream_t s) {
+  switch (D) {
+#define FSAM_CASE(d) \
+  case d:            \
+    return launch<T, d>(cost, gout, dcost, B, h, w, ytap, ywt, xu, bands, bn, s);
+    FSAM_CASE(1) FSAM_CASE(2) FSAM_CASE(3) FSAM_CASE(4) FSAM_CASE(5) FSAM_CASE(6) FSAM_CASE(7) FSAM_CASE(8)
+    FSAM_CASE(9) FSAM_CASE(10) FSAM_CASE(11) FSAM_CASE(12) FSAM_CASE(13) FSAM_CASE(14) FSAM_CASE(15) FSAM_CASE(16)
+#undef FSAM_CASE
   }
-  __syncthreads();
-
-  if (active) {
-    const int cx[2] = {x0, x1};
-    const float wxs[2] = {wx0, wx1};
-    const float wys[2] = {wy0, wy1};
-    const int rows[2] = {y0, y1};
-#pragma unroll
-    for (int d = 0; d < MAXD; ++d) {  // static bound: gd stays in registers
-      if (d >= D) continue;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (wys[r] == 0.0f) continue;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          if (wxs[k] == 0.0f) continue;
-          const float v = gd[d] * wys[r] * wxs[k];
-          const int col = cx[k] - base;
-          if (col >= 0 && col < SPAN)
-            atomicAdd(&tile[d][r][col], v);
-          else
-            atomicAdd(&dcost[(((size_t)b * D + d) * h + rows[r]) * w + cx[k]], v);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // flush the tile: one global atomic per touched coarse cell
-  for (int e = tid; e < D * 2 * SPAN; e += ROW) {
-    const int d = e / (2 * SPAN), r = (e / SPAN) % 2, col = e % SPAN;
-    const float v = tile[d][r][col];
-    const int xc = base + col;
-    if (v != 0.0f && xc < w) {
-      const int yc = r ? y1 : y0;
-      atomicAdd(&dcost[(((size_t)b * D + d) * h + yc) * w + xc], v);
-    }
-  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// cost [B, D, h, w] (D <= 16) and gout [B, Hp, Wp] in one dtype (is_bf16
-// selects bf16, else f32); dcost32 f32 [B, D, h, w] scratch (zeroed here);
-// dcost the output in the cost's dtype (for f32 pass dcost32 itself). The
-// tap tables as for K3 (`dpf_fused_softargmin`). Returns
-// cudaErrorInvalidValue for D > 16, else the first launch error.
-extern "C" int dpf_fused_softargmin_bwd(const void* cost, const void* gout, float* dcost32,
-                                        void* dcost, int B, int D, int h, int w, int Dp, int Hp,
-                                        int Wp, const int* didx, const float* dwt,
-                                        const int* yidx, const float* ywt, const int* xidx,
-                                        const float* xwt, const float* dv, int is_bf16,
+// The dynamic shared memory of K4's block for D coarse planes.
+extern "C" int dpf_fused_softargmin_bwd_smem_bytes(int D) { return smem_bytes(D); }
+
+// cost [B, D, h, w] (1 <= D <= 16) and gout [B, 4h, 4w] in one dtype (is_bf16
+// selects bf16, else f32); dcost [B, D, h, w] the output in that dtype, every
+// element written. ytap, ywt, xu and bins as for K3 (`dpf_fused_softargmin`);
+// bands int32 [ceil(h / band_rows), 2]: the output rows [first, end) whose
+// taps touch coarse rows [band_rows i, band_rows (i + 1)), on the device.
+// One launch; returns cudaGetLastError(), or cudaErrorInvalidValue for D
+// outside 1..16 or band_rows other than RB.
+extern "C" int dpf_fused_softargmin_bwd(const void* cost, const void* gout, void* dcost, int B, int D, int h,
+                                        int w, const int* ytap, const float* ywt, const float* xu,
+                                        const int* bands, int band_rows, const float* bins, int is_bf16,
                                         void* stream) {
-  if (D > MAXD || D < 1) return (int)cudaErrorInvalidValue;
+  if (band_rows != RB) return (int)cudaErrorInvalidValue;
+  Bins bn;
+  memcpy(&bn, bins, sizeof bn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)B * D * h * w;
-  int rc = (int)cudaMemsetAsync(dcost32, 0, (size_t)n * sizeof(float), s);
-  if (rc != 0) return rc;
-  dim3 grid((unsigned)((Wp + ROW - 1) / ROW), (unsigned)Hp, (unsigned)B);
-  if (is_bf16)
-    fsam_bwd_kernel<__nv_bfloat16><<<grid, ROW, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(cost), static_cast<const __nv_bfloat16*>(gout), dcost32, D,
-        h, w, Dp, Hp, Wp, didx, dwt, yidx, ywt, xidx, xwt, dv);
-  else
-    fsam_bwd_kernel<float><<<grid, ROW, 0, s>>>(static_cast<const float*>(cost),
-                                                 static_cast<const float*>(gout), dcost32, D, h, w,
-                                                 Dp, Hp, Wp, didx, dwt, yidx, ywt, xidx, xwt, dv);
-  rc = (int)cudaGetLastError();
-  if (rc != 0 || !is_bf16) return rc;
-  return dpf::cast_bf16(dcost32, dcost, n, s);
+  return is_bf16 ? dispatch<__nv_bfloat16>(D, cost, gout, dcost, B, h, w, ytap, ywt, xu, bands, bn, s)
+                 : dispatch<float>(D, cost, gout, dcost, B, h, w, ytap, ywt, xu, bands, bn, s);
 }

@@ -24,6 +24,7 @@ import torch
 
 from dualpixelface_tpu_torch.config import load_config
 from dualpixelface_tpu_torch.serve import Predictor, bench_batch, seeded_state_dict
+from dualpixelface_tpu_torch.tools import device_busy_us
 
 B, H, W = 4, 768, 576
 STAGES = ("feature_extraction", "cost_volume", "aggregation", "normal_estimator")
@@ -101,12 +102,7 @@ def device_profile(run, reps: int, top: int) -> list[dict]:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        start = max(e.time_range.start, end)
-        if e.time_range.end > start:
-            busy_us += e.time_range.end - start
-        end = max(end, e.time_range.end)
+    busy_us = device_busy_us(kernels)
     span_us = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
     lines = [{"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
               "device_idle_share_of_wall": 1.0 - busy_us / 1e3 / wall_ms,

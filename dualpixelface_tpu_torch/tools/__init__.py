@@ -4,9 +4,12 @@ kernels, on the card:
     python3 -m dualpixelface_tpu_torch.tools.bench_vpu_prims    # T2-T4 (tools/bench_vpu_prims.py)
     python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold  # T1 (tools/bench_dslice_fold.py --module convbn)
 
-and of the port's own: `bench_k2_split` and `bench_k1_split`, where K2's
-and K1's time goes (builds of each that leave one part out). All need a GPU and fail without one. Shared
-here: the H100's peak rates and the timing and bound helpers."""
+and of the port's own: `bench_k2_split`, `bench_k1_split` and
+`bench_k4_split`, where K2's, K1's and K4's time goes (builds of each that
+leave one part out), and `bench_softargmin`, K3's and K4's device time in
+this tree or another. All
+need a GPU and fail without one. Shared here: the H100's peak rates and the
+timing and bound helpers."""
 from __future__ import annotations
 
 import ctypes
@@ -22,6 +25,10 @@ import torch
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# exp2 on the special-function units (MUFU): 16 per clock per SM on sm_90
+# (CUDA C++ Programming Guide, arithmetic instruction throughput), on 132 SMs
+# at the 1.98 GHz boost clock behind the 67 TFLOP/s f32 peak.
+PEAK_SFU = 132 * 16 * 1.98e9
 
 
 def require_cuda(tool: str) -> None:
@@ -42,6 +49,37 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_busy_us(events) -> float:
+    """The union of the device intervals of profiler `events`, in us: time
+    the card was busy, counting overlapping kernels once."""
+    busy, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        start = max(e.time_range.start, end)
+        if e.time_range.end > start:
+            busy += e.time_range.end - start
+        end = max(end, e.time_range.end)
+    return busy
+
+
+def device_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device ms of `fn()` over `iters` calls after `warmup`: the union
+    of the device intervals (kernels, memsets, copies) that torch.profiler
+    records for the calls, over `iters`. Unlike `cuda_ms` it leaves out the
+    host's dispatch between launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("device_ms: the profiler recorded no device activity")
+    return device_busy_us(events) / 1e3 / iters
 
 
 def cudnn_conv3d_calls(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> dict:

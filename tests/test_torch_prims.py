@@ -198,7 +198,8 @@ def test_bench_dslice_fold_checks_both_epilogues():
     assert all(r["max_abs_err"] == 0.0 and r["worst_ratio"] == 0.0 for r in res)
 
 
-@pytest.mark.parametrize("tool", ["bench_vpu_prims", "bench_dslice_fold", "bench_k2_split", "bench_k1_split"])
+@pytest.mark.parametrize("tool", ["bench_vpu_prims", "bench_dslice_fold", "bench_k2_split", "bench_k1_split",
+                                  "bench_k4_split", "bench_softargmin"])
 def test_tools_refuse_to_run_without_cuda(tool, monkeypatch):
     """The tools measure the card: without CUDA they exit, and nothing
     falls back to the CPU."""
