@@ -31,8 +31,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   4. time each forward kernel, its plain version and, for K5, cuDNN's
      conv3d (which the port never calls) in NCDHW and in channels_last_3d
      (the kernel's own NDHWC), the faster of the two as its `library_ms`,
-     with CUDA events; one `K1_run` and one `K5_run` line per Cin (K1's
-     time includes its operands' packing);
+     with CUDA events and on the device alone (`tools.device_ms`); one
+     `K1_run` and one `K5_run` line per Cin (K1's time includes its
+     operands' packing);
   4b. the same for K2 at the train path's shapes;
   4c. K3 (serving shape) and K4 (train shape) in bf16, with CUDA events and
      on the device alone (`tools.device_ms`, the union of the device
@@ -42,8 +43,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      finiteness, launch counts (K1 +2, K5 +2, K3 +1 per forward), and a
      smoke reading of pairs/s (the serving rate proper, over many batches,
      is `python3 -m dualpixelface_tpu_torch.profile_serving`'s);
+  5b. the same for the reference-exact `stereodpnet` configuration (exact
+     attention, unbounded deform, unfused regression): shapes with
+     `prob_depth` [4, 1, 32, 768, 576], finiteness, launch counts (K1 +2,
+     K5 +2, K3 +0 per forward: the regression is the plain soft-argmin, as
+     in JAX), the peak memory and a smoke reading of pairs/s;
   6. the same weights at 192x192, batch 1, f32: the card's forward (kernels)
      against the CPU forward (plain versions);
+  6b. the same for `stereodpnet`, with phase 6's tolerances;
   7. train 3 steps in the train cell (the run keys `profile_train.
      TRAIN_CELL`: batch 2 under the bf16 policy) at 768x576 through
      `make_train_step` (the same seeded weights, Adam): finite losses,
@@ -51,6 +58,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      counts per step (K1 2, K5 2, K3 3, K2 2, K4 3), the peak memory, and a
      smoke reading of pairs/s through `profile_serving.timed` (the rate
      proper is profile_train's);
+  7b. the same for the JAX bench's own train cell (`profile_train.CELLS
+     ["bench"]`: `stereodpnet`, exact attention, windowed deform without
+     the offset clamp, fused regression), with the same launch counts per
+     step and its peak memory (the exact attention's backward at full size,
+     without recomputation);
   8. one f32 train step of batch 2 at 32x32 from the committed plateau
      checkpoint on the card against the same step on the CPU, at a point
      where both took the same side of every kink: losses and each
@@ -62,13 +74,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      batch 4), each checked against its plain version and then driven
      through its tool's measurement, timed beside its bound; before them,
      T4 at ragged m (1, 33, 130) and k (8, 72, 2248), f32 and bf16.
+Each phase prints its wall seconds (`phase_seconds`).
 Then one line sets K5's bf16 time beside cuDNN's faster layout and T1's
 beside the ConvBN3D + ReLU chain, summed over their shapes (a reading,
 not a check).
 The line before the last is the `kernels` JSON with nine rows (launches:
-K1-K5 the train path's run of phase 7, `launches_serving` phase 5's; T1-T4
-the tools' measurements in phase 9, whose T rows sum the runs' times and
-bounds; K3 and K4 also carry `device_ms`, phase 4c's time on the device
+K1-K5 the train path's run of phase 7, `launches_serving` phase 5's,
+`launches_serving_exact` phase 5b's, `launches_train_bench` phase 7b's;
+T1-T4 the tools' measurements in phase 9, whose T rows sum the runs' times
+and bounds; K1-K5 also carry `device_ms`, phases 4-4c's time on the device
 alone); the last line is {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -268,7 +282,7 @@ def kernel_inputs(torch, gen, cin, dtype, shape=ANM_SHAPE, on_bound=False):
 
 
 def check_and_time_kernels(torch):
-    from dualpixelface_tpu_torch.tools import cuda_ms, cudnn_conv3d_calls
+    from dualpixelface_tpu_torch.tools import cuda_ms, cudnn_conv3d_calls, device_ms
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_fused, deform_conv3d_plain, fwd_route
 
@@ -277,8 +291,8 @@ def check_and_time_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
     err = {"K1": 0.0, "K5": 0.0}
-    timing = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "flops": 0.0, "bytes": 0.0, "flops_f32": 0.0}
-              for k in err}
+    timing = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": None, "flops": 0.0, "bytes": 0.0,
+                  "flops_f32": 0.0} for k in err}
 
     for dtype, dname in ((torch.float32, "float32"), (bf16, "bfloat16")):
         for cin in CINS:
@@ -300,18 +314,21 @@ def check_and_time_kernels(torch):
             m = math.prod(ANM_SHAPE)
             run = {"cin": cin, "route": fwd_route(dtype),
                    "ms": cuda_ms(lambda: deform_conv3d_fused(x, off, w, bias, aperture=True), 5),
+                   "device_ms": device_ms(lambda: deform_conv3d_fused(x, off, w, bias, aperture=True), 5),
                    "plain_ms": cuda_ms(lambda: deform_conv3d_plain(x, off, w, bias, aperture=True), 2),
                    "flops": 2.0 * m * 27 * cin * COUT}
             run["tflops"] = run["flops"] / run["ms"] / 1e9
             print(json.dumps({"K1_run": run}), flush=True)
             k1.setdefault("runs", []).append(run)
             k1["ms"] += run["ms"]
+            k1["device_ms"] += run["device_ms"]
             k1["plain_ms"] += run["plain_ms"]
             k1["flops"] += run["flops"]
             k1["flops_f32"] += K1_F32_OPS * m * 27 * cin
             k1["bytes"] += sum(t.numel() * t.element_size() for t in (x, off, w, bias)) + m * COUT * 2
             k5 = timing["K5"]
             run = {"cin": cin, "ms": cuda_ms(lambda: conv3d_dslice(x, w_off, b_off), 5),
+                   "device_ms": device_ms(lambda: conv3d_dslice(x, w_off, b_off), 5),
                    "plain_ms": cuda_ms(lambda: conv3d_dslice_plain(x, w_off, b_off), 2),
                    "flops": 2.0 * m * 27 * cin * 81}
             for layout, call in cudnn_conv3d_calls(x, w_off, b_off).items():
@@ -322,6 +339,7 @@ def check_and_time_kernels(torch):
             print(json.dumps({"K5_run": run}), flush=True)
             k5.setdefault("runs", []).append(run)
             k5["ms"] += run["ms"]
+            k5["device_ms"] += run["device_ms"]
             k5["plain_ms"] += run["plain_ms"]
             k5["library_ms"] = (k5["library_ms"] or 0.0) + run["cudnn_ms"]
             k5["flops"] += run["flops"]
@@ -331,17 +349,18 @@ def check_and_time_kernels(torch):
 
 
 def check_and_time_backward_kernels(torch, err, timing):
-    """Phases 3b and 4b: K2 and K4 against autograd through their plain
-    versions at the train path's shapes, in f32 and bf16; their times at
-    bf16, the train dtype. The plain K2 at this shape holds ~30 GB of
+    """Phases 3b and 4b: K2 against autograd through its plain version at
+    the train path's shapes, in f32 and bf16; its times at bf16, the train
+    dtype, with CUDA events and on the device alone. The plain K2 at this shape holds ~30 GB of
     autograd state, so each comparison frees it before the next."""
-    from dualpixelface_tpu_torch.tools import cuda_ms
+    from dualpixelface_tpu_torch.tools import cuda_ms, device_ms
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16 = torch.bfloat16
     err["K2"] = 0.0
-    timing["K2"] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "flops": 0.0, "bytes": 0.0, "flops_f32": 0.0}
+    timing["K2"] = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": None, "flops": 0.0, "bytes": 0.0,
+                    "flops_f32": 0.0}
     m = math.prod(TRAIN_ANM_SHAPE)
     for dtype, dname in ((torch.float32, "float32"), (bf16, "bfloat16")):
         for cin in CINS:
@@ -361,6 +380,7 @@ def check_and_time_backward_kernels(torch, err, timing):
                 continue
             k2 = timing["K2"]
             k2["ms"] += cuda_ms(lambda: deform_conv3d_bwd(x, off, w, bias, g, aperture=True), 3)
+            k2["device_ms"] += device_ms(lambda: deform_conv3d_bwd(x, off, w, bias, g, aperture=True), 3)
             k2["plain_ms"] += cuda_ms(lambda: deform_conv3d_bwd_plain(x, off, w, bias, g, aperture=True), 1)
             torch.cuda.empty_cache()
             # two contractions (gcols = g W^T, gw = cols^T g), twice K1's,
@@ -575,74 +595,91 @@ def tools_phase(torch):
     return rows
 
 
-def check_results(torch, res, b, h, w):
+def check_results(torch, res, b, h, w, bins=None):
+    """Shapes and finiteness of an eval result at batch b, h x w: under the
+    fused regression (`bins` None) `prob_depth` must be None, else
+    [b, 1, bins, h, w]."""
     shapes = {"pred_depth": (b, 1, h, w), "pred_normal": (b, 1, h, w, 3), "ref_feature": (b, h // 4, w // 4)}
+    if bins is not None:
+        shapes["prob_depth"] = (b, 1, bins, h, w)
+    elif res["prob_depth"] is not None:
+        fail("prob_depth must be None under the fused regression")
     for key, shape in shapes.items():
         t = res[key]
         if tuple(t.shape) != shape:
             fail(f"{key}: shape {tuple(t.shape)} != {shape}")
         if not bool(torch.isfinite(t.float()).all()):
             fail(f"{key}: non-finite values")
-    if res["prob_depth"] is not None:
-        fail("prob_depth must be None under the fused regression")
 
 
-def serve_full_width(torch, config, sd, card):
+def serve_full_width(torch, config, sd, card, per_forward, label="serving"):
+    """Phases 5 and 5b: 3 request batches of `config`'s serving forward,
+    with the launch counts set to 0 just before and read just after, held
+    to `per_forward` launches per forward of each kernel."""
     from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from dualpixelface_tpu_torch.profile_serving import timed
     from dualpixelface_tpu_torch.serve import Predictor, bench_batch
 
     pred = Predictor(config, state_dict=sd, device="cuda", dtype=torch.bfloat16)
+    bins = None if config.model.get("fused_regression", False) else 4 * config.model.level
     batches = [bench_batch(B, H, W, seed=s) for s in range(3)]
-    check_results(torch, pred(batches[0]), B, H, W)  # warm-up (cuDNN plans, allocator)
+    check_results(torch, pred(batches[0]), B, H, W, bins)  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    smoke = timed(pred, batches, check=lambda res: check_results(torch, res, B, H, W))
+    smoke = timed(pred, batches, check=lambda res: check_results(torch, res, B, H, W, bins))
     launches = launch_counts()
-    want = {**dict.fromkeys(launches, 0), "K1": 2 * len(batches), "K3": len(batches), "K5": 2 * len(batches)}
-    print(f"serving launches {launches} (expected {want})", flush=True)
+    want = {**dict.fromkeys(launches, 0), **{k: n * len(batches) for k, n in per_forward.items()}}
+    print(f"{label} launches {launches} (expected {want})", flush=True)
     if launches != want:
-        fail(f"launch counts {launches} != {want}: the serving path did not run through every kernel")
+        fail(f"launch counts {launches} != {want}: the {label} path did not run through every kernel")
     # 3 batches: a smoke reading only; the serving rate is profile_serving's,
     # over many more batches through the same `timed`
-    print(json.dumps({"serving_smoke": {**smoke, "batch": B, "hw": [H, W], "dtype": "bfloat16",
-                                        "card": card}}), flush=True)
+    print(json.dumps({f"{label}_smoke": {**smoke, "model": config.model_name, "batch": B, "hw": [H, W],
+                                         "dtype": "bfloat16", "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                         "card": card}}), flush=True)
+    del pred
+    torch.cuda.empty_cache()
     return launches
 
 
 def check_against_cpu(torch, config, sd):
+    """Phases 6 and 6b: `config`'s eval forward at 192x192, batch 1, f32,
+    the card (kernels) against the CPU (plain versions)."""
     from dualpixelface_tpu_torch.serve import Predictor, bench_batch
 
     batch = bench_batch(1, 192, 192, seed=7)
     gpu = Predictor(config, state_dict=sd, device="cuda", dtype=torch.float32)(batch)
     cpu = Predictor(config, state_dict=sd, device="cpu", dtype=torch.float32)(batch)
-    check_results(torch, gpu, 1, 192, 192)
+    bins = None if config.model.get("fused_regression", False) else 4 * config.model.level
+    check_results(torch, gpu, 1, 192, 192, bins)
     d_err = float((gpu["pred_depth"].cpu() - cpu["pred_depth"]).abs().max())
     n_diff = (gpu["pred_normal"].cpu() - cpu["pred_normal"]).abs()
     n_share = float((n_diff <= 1e-3).float().mean())
     n_mean = float(n_diff.mean())
-    print(f"192x192 f32 card vs CPU: depth max_abs_err {d_err:.3e} (tol 1e-2); normals within 1e-3: "
+    print(f"192x192 f32 {config.model_name} card vs CPU: depth max_abs_err {d_err:.3e} (tol 1e-2); normals within 1e-3: "
           f"{n_share:.5f} (tol >= 0.995), mean abs err {n_mean:.3e} (tol 1e-3)", flush=True)
     # depth: f32 sums in another order through ~60 layers, then a softmax
     # over 32 bins; normals: a pixel whose disparity sits at a plane boundary
     # may pick the other sample_with_sort window, so a small share may differ
     if not (d_err <= 1e-2 and n_share >= 0.995 and n_mean <= 1e-3):
-        fail("the card's forward disagrees with the CPU forward at 192x192")
+        fail(f"the card's {config.model_name} forward disagrees with the CPU forward at 192x192")
 
 
-def train_full_width(torch, sd, card):
-    """Phase 7: 3 train steps in the train cell (batch 2 at 768x576 under
-    the bf16 policy: `profile_train.TRAIN_CELL`'s run keys)."""
-    from dualpixelface_tpu_torch.config import load_config
+def train_full_width(torch, sd, card, cell="stereodpnet_plus"):
+    """Phases 7 and 7b: 3 train steps in train cell `cell` of
+    `profile_train.CELLS` (batch 2 at 768x576 under the bf16 policy:
+    `profile_train.TRAIN_CELL`'s run keys), with the launch counts set to 0
+    just before and read just after."""
     from dualpixelface_tpu_torch.losses import loss_selector
     from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from dualpixelface_tpu_torch.ops.precision import resolve_policy
     from dualpixelface_tpu_torch.profile_serving import timed
-    from dualpixelface_tpu_torch.profile_train import TRAIN_CELL, train_batch
+    from dualpixelface_tpu_torch.profile_train import cell_config, train_batch
     from dualpixelface_tpu_torch.train.state import create_train_state
     from dualpixelface_tpu_torch.train.steps import make_train_step
 
-    config = load_config("stereodpnet_plus", run_overrides=TRAIN_CELL)
+    config = cell_config(cell)
     if (resolve_policy(config), config.batch_size) != (torch.bfloat16, TB):
         fail(f"the train cell's run keys give {resolve_policy(config)}, batch {config.batch_size}")
     state = create_train_state(config, steps_per_epoch=100, state_dict=sd, device="cuda")
@@ -665,9 +702,9 @@ def train_full_width(torch, sd, card):
     launches = launch_counts()
     per_step = {"K1": 2, "K2": 2, "K3": 3, "K4": 3, "K5": 2}
     want = {**dict.fromkeys(launches, 0), **{k: n * len(batches) for k, n in per_step.items()}}
-    print(f"train launches {launches} (expected {want})", flush=True)
+    print(f"train cell {cell} launches {launches} (expected {want})", flush=True)
     if launches != want:
-        fail(f"launch counts {launches} != {want}: the train path did not run through every kernel")
+        fail(f"launch counts {launches} != {want}: the {cell} train path did not run through every kernel")
     masters = [p for g in state.optimizer.param_groups for p in g["params"]]
     params = list(state.model.parameters())
     if len(params) != len(masters) or any(p is not q or p.dtype != torch.float32 for p, q in zip(params, masters)):
@@ -676,9 +713,12 @@ def train_full_width(torch, sd, card):
     if moved != len(before):
         fail(f"only {moved} of {len(before)} parameter tensors moved in 3 train steps")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(json.dumps({"train_smoke": {**smoke, "batch": TB, "hw": [H, W], "dtype": "bfloat16",
+    print(json.dumps({"train_smoke": {**smoke, "cell": cell, "model": config.model_name, "batch": TB, "hw": [H, W],
+                                      "dtype": "bfloat16",
                                       "peak_memory_gb": peak, "params_moved": moved, "params": len(before),
                                       "card": card}}), flush=True)
+    del state, step, before
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -830,17 +870,32 @@ def main() -> int:
           + json.dumps({k: round(v["seconds"], 1) for k, v in report.items()}), flush=True)
     print_build_report(report)
 
-    err, timing = check_and_time_kernels(torch)
-    check_and_time_backward_kernels(torch, err, timing)
-    check_and_time_softargmin(torch, err, timing)
-    check_edge_shapes(torch)
+    seconds = {"2": time.perf_counter() - t0}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        print(f"phase {name}: {seconds[name]:.1f} s wall", flush=True)
+        return out
+
+    err, timing = phase("3, 4", check_and_time_kernels, torch)
+    phase("3b, 4b", check_and_time_backward_kernels, torch, err, timing)
+    phase("3d, 4c", check_and_time_softargmin, torch, err, timing)
+    phase("3c", check_edge_shapes, torch)
     config = load_config("stereodpnet_plus")
-    sd = seeded_state_dict(config)
-    serving = serve_full_width(torch, config, sd, card)
-    check_against_cpu(torch, config, sd)
-    launches = train_full_width(torch, sd, card)
-    train_against_cpu(torch)
-    tools = tools_phase(torch)
+    exact = load_config("stereodpnet")
+    sd = seeded_state_dict(config)  # one tree: stereodpnet's seeded weights are the same
+    serving = phase("5", serve_full_width, torch, config, sd, card, {"K1": 2, "K3": 1, "K5": 2})
+    serving_exact = phase("5b", serve_full_width, torch, exact, sd, card, {"K1": 2, "K3": 0, "K5": 2},
+                          "serving_exact")
+    phase("6", check_against_cpu, torch, config, sd)
+    phase("6b", check_against_cpu, torch, exact, sd)
+    launches = phase("7", train_full_width, torch, sd, card)
+    launches_bench = phase("7b", train_full_width, torch, sd, card, "bench")
+    phase("8", train_against_cpu, torch)
+    tools = phase("9", tools_phase, torch)
+    print(json.dumps({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0}), flush=True)
     k5, t1 = timing["K5"], tools["T1"]
     chain_ms = sum(r["chain_ms"] for r in t1["runs"])
     print(json.dumps({"yardsticks": {
@@ -859,9 +914,10 @@ def main() -> int:
         kernels.append({
             "name": f"{k} {NAMES[k]}", "route": "cuda",
             "source": f"dualpixelface_tpu_torch/csrc/{SOURCES[k]}", "replaces": TPU_SITES[k],
-            "launches": launches[k], "launches_serving": serving[k], "max_abs_err": err[k], "ms": t["ms"],
+            "launches": launches[k], "launches_serving": serving[k], "launches_serving_exact": serving_exact[k],
+            "launches_train_bench": launches_bench[k], "max_abs_err": err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library_ms"],
-            **({"device_ms": t["device_ms"]} if "device_ms" in t else {}),
+            "device_ms": t["device_ms"],
         })
     for k, row in tools.items():
         kernels.append({

@@ -107,23 +107,25 @@ class FeatureExtraction(nn.Module):
 
 class ASMCostVolume(nn.Module):
     """Sub-pixel shifted concat cost volume with shared masking attention:
-    [B, C, H, W] x 2 -> [B, 2C, D, H, W]. Only the `fast_attention` path is
-    ported; the exact-attention layouts and the compat options raise."""
+    [B, C, H, W] x 2 -> [B, 2C, D, H, W]. `fast_attention` selects the
+    hoisted-head attention, else the exact one. `compat_nearest` takes the
+    reference's stretched nearest grid; `compat_frozen_shift_grid` shifts
+    every plane by costrange[0], as the reference's sampling grid, cached on
+    its first call, does. The JAX package's attention layouts
+    (`attention_layout`, `fast_attention_layout`, `asm_head_s2d`,
+    `asm_remat_save`) are relayouts of the same math; their keys are
+    accepted and have no effect here."""
 
     def __init__(self, option, mindisp: float, maxdisp: float):
         super().__init__()
         opt = option.model
+        disps = tuple(make_costrange(mindisp, maxdisp, opt.level).tolist())
         if opt.get("compat_frozen_shift_grid", False):
-            raise NotImplementedError("compat_frozen_shift_grid is not ported yet (ROADMAP.md queue 1)")
-        if opt.get("compat_nearest", False):
-            raise NotImplementedError("compat_nearest is not ported yet (ROADMAP.md queue 1)")
-        if not opt.get("fast_attention", False):
-            raise NotImplementedError(
-                "exact attention (fast_attention=false: stacked/flat/mpack layouts) is not ported yet "
-                "(ROADMAP.md queue 1)"
-            )
-        self.disps = tuple(make_costrange(mindisp, maxdisp, opt.level).tolist())
-        self.modes = dict(nearest=opt.nearest, bilinear=opt.bilinear, phase=opt.phase)
+            disps = (disps[0],) * len(disps)
+        self.disps = disps
+        self.modes = dict(nearest=opt.nearest, bilinear=opt.bilinear, phase=opt.phase,
+                          compat_nearest=bool(opt.get("compat_nearest", False)))
+        self.fast = bool(opt.get("fast_attention", False))
         self.attention_layer = MaskingAttention(
             opt.inplanes, act=opt.asm_activation, feature_fetch=opt.feature_fetch
         )
@@ -132,6 +134,7 @@ class ASMCostVolume(nn.Module):
         return lambda t: subpixel_shift_planes(t, self.disps, direction, axis=2, **self.modes)
 
     def forward(self, ref_feat, tar_feat):
-        vol_ref = self.attention_layer(ref_feat, self._shift("forward"))
-        vol_tar = self.attention_layer(tar_feat, self._shift("backward"))
+        attend = self.attention_layer.forward_fast if self.fast else self.attention_layer
+        vol_ref = attend(ref_feat, self._shift("forward"))
+        vol_tar = attend(tar_feat, self._shift("backward"))
         return torch.cat([vol_ref, vol_tar], dim=1)

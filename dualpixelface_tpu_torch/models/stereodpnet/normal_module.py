@@ -2,9 +2,11 @@
 `dualpixelface_tpu/models/stereodpnet/normal_module.py`).
 
 From the aggregated cost volume and the regressed disparity:
-  1. sample_with_sort: the k disparity planes nearest the predicted disparity;
+  1. sample_with_sort: the k disparity planes nearest the predicted disparity
+     (with `use_sampling` off: every plane, at the plane grid's values);
   2. grid_maker_3d: the normalised 3-D world-coordinate volume;
-  3. two deformable 3x3x3 convs over [cost | coords] (kernels K5 and K1);
+  3. two deformable 3x3x3 convs over [cost | coords] (kernels K5 and K1),
+     or with `use_deform` off a plain ConvBN3D pair (`original_conv`);
   4. a shared dilated 2-D conv stack per plane, x4 bilinear upsample,
      sigmoid, mean over planes, mapped to [-1, 1].
 The deform stage is channels-last [B, K, h, w, C], the kernels' layout.
@@ -18,7 +20,7 @@ import torch
 from torch import nn
 
 from dualpixelface_tpu_torch.ops import geometry
-from dualpixelface_tpu_torch.ops.blocks import BatchNorm3d, LeakyReLU
+from dualpixelface_tpu_torch.ops.blocks import BatchNorm3d, ConvBN3D, LeakyReLU
 from dualpixelface_tpu_torch.ops.cost_volume import costrange as make_costrange
 from dualpixelface_tpu_torch.ops.deform_conv3d import DeformConvPack3D
 from dualpixelface_tpu_torch.ops.resize import downsample2d_nearest, resize_linear
@@ -107,16 +109,19 @@ class ANM(nn.Module):
         super().__init__()
         opt = option.model
         c = opt.inplanes
-        if not (opt.use_deform and opt.use_sampling):
-            raise NotImplementedError("ANM without use_deform/use_sampling is not ported yet (ROADMAP.md queue 1)")
+        self.use_sampling = bool(opt.use_sampling)
         self.k = int(opt.dsample_num)
         self.costrange = make_costrange(mindisp, maxdisp, opt.level)
-        impl = opt.get("deform_impl", "pallas")
-        oclamp = bool(opt.get("deform_offset_clamp", False))
-        self.deform_conv1 = DeformConvPack3D(c + 3, 2 * c, impl, oclamp)
-        self.deform_conv2 = DeformConvPack3D(2 * c, 2 * c, impl, oclamp)
-        self.act1 = nn.Sequential(BatchNorm3d(2 * c), nn.ReLU())
-        self.act2 = nn.Sequential(BatchNorm3d(2 * c), nn.ReLU())
+        if opt.use_deform:
+            impl = opt.get("deform_impl", "pallas")
+            oclamp = bool(opt.get("deform_offset_clamp", False))
+            self.deform_conv1 = DeformConvPack3D(c + 3, 2 * c, impl, oclamp)
+            self.deform_conv2 = DeformConvPack3D(2 * c, 2 * c, impl, oclamp)
+            self.act1 = nn.Sequential(BatchNorm3d(2 * c), nn.ReLU())
+            self.act2 = nn.Sequential(BatchNorm3d(2 * c), nn.ReLU())
+            self.original_conv = None
+        else:
+            self.original_conv = nn.Sequential(ConvBN3D(c + 3, 2 * c), nn.ReLU(), ConvBN3D(2 * c, 2 * c), nn.ReLU())
         plan = [(3 * c, 1), (3 * c, 2), (2 * c, 4), (2 * c, 8), (c, 1), (3, 1)]
         chans = [2 * c] + [ch for ch, _ in plan]
         self.n_convs = nn.ModuleList([
@@ -126,18 +131,28 @@ class ANM(nn.Module):
 
     def forward(self, cost, disp_map, batch):
         """cost [B, C, D, h, w] (channels-first), disp_map [B, H, W].
-        Returns (normal [B, H, W, 3], offset1, offset2)."""
+        Returns (normal [B, H, W, 3], offset1, offset2); the offsets are
+        None without the deform convs."""
         cost = torch.movedim(cost, 1, -1)  # [B, D, h, w, C]
         b = cost.shape[0]
-        disp = downsample2d_nearest(disp_map[..., None], 4)[..., 0] * 0.25
-        cost_s, disp_range = sample_with_sort(cost, disp, self.costrange, self.k)
+        if self.use_sampling:
+            disp = downsample2d_nearest(disp_map[..., None], 4)[..., 0] * 0.25
+            cost_s, disp_range = sample_with_sort(cost, disp, self.costrange, self.k)
+        else:
+            cost_s = cost
+            planes = _device_planes(tuple(np.asarray(self.costrange, np.float32).tolist()), cost.device)
+            disp_range = planes.reshape(1, -1, 1, 1).expand((b, len(self.costrange)) + cost.shape[2:4])
         coord = grid_maker_3d(batch["K"], disp_range, batch["abvalue"])
         fv = torch.cat([cost_s, coord.to(cost_s.dtype)], dim=-1).contiguous()  # [B, K, h, w, C+3]
 
-        fv, offset1 = self.deform_conv1(fv)
-        fv = _bn_channels_last(self.act1, fv).contiguous()
-        fv, offset2 = self.deform_conv2(fv)
-        fv = _bn_channels_last(self.act2, fv)
+        if self.original_conv is None:
+            fv, offset1 = self.deform_conv1(fv)
+            fv = _bn_channels_last(self.act1, fv).contiguous()
+            fv, offset2 = self.deform_conv2(fv)
+            fv = _bn_channels_last(self.act2, fv)
+        else:
+            fv = torch.movedim(self.original_conv(torch.movedim(fv, -1, 1)), 1, -1)
+            offset1 = offset2 = None
 
         _, ks, hh, ww, cc = fv.shape
         feats = torch.movedim(fv.reshape(b * ks, hh, ww, cc), -1, 1)  # [B*K, C, h, w]
@@ -147,4 +162,3 @@ class ANM(nn.Module):
         feats = feats.reshape(b, ks, 3, 4 * hh, 4 * ww).mean(dim=1)
         normal = torch.movedim(feats * 2.0 - 1.0, 1, -1)  # [B, H, W, 3]
         return normal, offset1, offset2
-

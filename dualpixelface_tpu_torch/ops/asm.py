@@ -9,9 +9,12 @@ Every function takes the axis that holds H, and inserts the plane axis D
 just before it (`axis=1` is the JAX layout [B, H, W, C]; the port's modules
 call with `axis=2` on [B, C, H, W]).
 
-Ported: the `fast_attention` (hoisted head) path of `MaskingAttention`.
-The exact-attention layouts, `compat_nearest` and `compat_frozen_shift_grid`
-raise NotImplementedError in this slice.
+`MaskingAttention` computes both of the JAX package's formulations: the
+exact one (the mask head on every shifted plane and mode) and the
+`fast_attention` one (the head hoisted before the shifts). The JAX package's
+stacked, flat and mode-packed (`mpack`) exact layouts and its `asm_head_s2d`
+head are relayouts of the same exact math (`tests/test_asm.py` pins them
+equal); here it is one plain formulation.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dualpixelface_tpu_torch.ops.blocks import BatchNorm2d, InstanceNorm
+from dualpixelface_tpu_torch.ops.blocks import BatchNorm2d, InstanceNorm, PReLU
 
 
 def shift_h_static(x: torch.Tensor, k: int, axis: int = 1) -> torch.Tensor:
@@ -45,6 +48,37 @@ def shift_h_static(x: torch.Tensor, k: int, axis: int = 1) -> torch.Tensor:
 def shift_h_nearest(x: torch.Tensor, delta: float, axis: int = 1) -> torch.Tensor:
     """Nearest shift: src[round(y + delta)] (round half to even)."""
     return shift_h_static(x, int(np.round(delta)), axis)
+
+
+def _compat_nearest_index(n: int, delta: float) -> tuple[np.ndarray, np.ndarray]:
+    """The reference's nearest sampling index along one axis: an
+    align-corners grid (v / (n - 1) * 2 - 1) read by grid_sample with
+    align_corners=False, so the source position is
+    (i + delta) * n / (n - 1) - 0.5, a stretch rather than a shift (for even
+    n it even zeroes the last row). np.round is half to even, as
+    grid_sample's nearbyint. Returns (clipped index, in-range mask)."""
+    pos = (np.arange(n) + delta) * n / (n - 1) - 0.5
+    idx = np.round(pos).astype(np.int64)
+    valid = (idx >= 0) & (idx <= n - 1)
+    return np.clip(idx, 0, n - 1), valid
+
+
+def shift_h_nearest_compat(x: torch.Tensor, delta: float, axis: int = 1) -> torch.Tensor:
+    """The reference's nearest branch bit for bit (`compat_nearest`): the H
+    axis (`axis`) takes the stretched +delta map and the W axis (axis + 1)
+    the delta = 0 map, both remapped, as grid_sample sees the 2-D grid."""
+    h, w = x.shape[axis], x.shape[axis + 1]
+    idx_h, ok_h = _compat_nearest_index(h, delta)
+    idx_w, ok_w = _compat_nearest_index(w, 0.0)
+    out = torch.index_select(x, axis, torch.as_tensor(idx_h, device=x.device))
+    out = torch.index_select(out, axis + 1, torch.as_tensor(idx_w, device=x.device))
+    shape_h = [1] * x.ndim
+    shape_h[axis] = h
+    shape_w = [1] * x.ndim
+    shape_w[axis + 1] = w
+    mask = (torch.as_tensor(ok_h, dtype=x.dtype, device=x.device).reshape(shape_h)
+            * torch.as_tensor(ok_w, dtype=x.dtype, device=x.device).reshape(shape_w))
+    return out * mask
 
 
 def shift_h_bilinear(x: torch.Tensor, delta: float, axis: int = 1) -> torch.Tensor:
@@ -102,15 +136,14 @@ def subpixel_shift_planes(
 ) -> list[torch.Tensor]:
     """Shift `feat` by every disparity along `axis` in up to three modes.
     Returns the mode list (nearest, bilinear, phase order), each with the
-    plane axis D inserted before `axis` (the JAX `layout='list'`)."""
-    if compat_nearest:
-        raise NotImplementedError(
-            "compat_nearest is not ported yet (see ROADMAP.md queue 1)"
-        )
+    plane axis D inserted before `axis` (the JAX `layout='list'`).
+    `compat_nearest` takes the reference's stretched nearest grid
+    (`shift_h_nearest_compat`)."""
     sign = 1.0 if direction == "forward" else -1.0
+    shift_nearest = shift_h_nearest_compat if compat_nearest else shift_h_nearest
     modes = []
     if nearest:
-        modes.append(torch.stack([shift_h_nearest(feat, sign * d, axis) for d in disps], dim=axis))
+        modes.append(torch.stack([shift_nearest(feat, sign * d, axis) for d in disps], dim=axis))
     if bilinear:
         modes.append(torch.stack([shift_h_bilinear(feat, sign * d, axis) for d in disps], dim=axis))
     if phase:
@@ -119,23 +152,31 @@ def subpixel_shift_planes(
 
 
 class MaskingAttention(nn.Module):
-    """Shift-mode gating attention, fast (hoisted-head) path.
+    """Shift-mode gating attention. A mask head (conv 3x3 -> BN -> relu ->
+    conv 1x1) scores each shift mode; the InstanceNorm statistics are pooled
+    over (mode, h, w) per (sample, plane, channel); the activation (sigmoid,
+    or a PReLU for `act="relu"`) and a softmax over the modes gate the
+    shifted features, then their mean (or variance, `feature_fetch`) over
+    modes. Input [B, C, H, W] and the shift function, output
+    [B, C, D, H, W].
 
-    The mask head (conv 3x3 -> BN -> relu -> conv 1x1) runs once on the
-    unshifted feature map, and the mode shifts are applied to its output.
-    The InstanceNorm statistics are pooled over (mode, h, w) per
-    (sample, plane, channel); softmax over the modes gates the shifted
-    features, then their mean (or variance, `feature_fetch`) over modes.
-    Input [B, C, H, W], output [B, C, D, H, W].
+    `forward` is the exact attention: the head runs on every (plane, mode)
+    of the shifted volume, the train-mode BatchNorm statistics are taken
+    over all of them (the set of the JAX package's batch-folded call:
+    samples, planes, modes and pixels of one call), one update per call.
+    `forward_fast` is the `fast_attention` deviation: the head runs once on
+    the unshifted map and the shifts are applied to its output.
 
     The attribute tree is the reference torch module's: `mask_convs` =
     (conv, bn, relu, (conv, norm)) with `normalize` the same norm module
-    registered a second time, as the reference does."""
+    registered a second time, as the reference does. The PReLU of
+    `act="relu"` has no name in the reference's state_dict as the JAX
+    package exports it; the port names it `prelu` (init 0.05)."""
 
     def __init__(self, features: int, act: str = "sigmoid", feature_fetch: bool = False):
         super().__init__()
-        if act != "sigmoid":
-            raise NotImplementedError(f"asm activation {act!r} is not ported yet")
+        if act not in ("sigmoid", "relu"):
+            raise NotImplementedError(f"asm activation {act!r}")
         self.feature_fetch = feature_fetch
         self.normalize = InstanceNorm(features)
         self.mask_convs = nn.Sequential(
@@ -144,23 +185,19 @@ class MaskingAttention(nn.Module):
             nn.ReLU(),
             nn.Sequential(nn.Conv3d(features, features, 1, bias=False), self.normalize),
         )
+        self.prelu = PReLU(0.05) if act == "relu" else None
 
-    def forward(self, x: torch.Tensor, shift_fn) -> torch.Tensor:
-        conv0, bn, _, tail = self.mask_convs
-        mask = F.conv2d(x, conv0.weight[:, :, 0], padding=1)
-        mask = F.conv2d(torch.relu(bn(mask)), tail[0].weight[:, :, 0])
+    def _activate(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(t) if self.prelu is None else self.prelu(t)
 
-        y_modes = shift_fn(x)        # M x [B, C, D, H, W]
-        mask_modes = shift_fn(mask)  # M x [B, F, D, H, W]
+    def _gate(self, y_modes, mask_modes) -> torch.Tensor:
+        """The InstanceNorm with (mode, h, w) statistics and the activation
+        on the M mask volumes, a softmax over the mode list (elementwise
+        across its entries), the gated features, then their mean or
+        variance over the modes."""
+        stats = self._mode_stats(mask_modes)
+        mask_modes = [self._activate(self.normalize(t, stats=stats)) for t in mask_modes]
         m = len(y_modes)
-        h, w = mask_modes[0].shape[-2:]
-        npix = float(m * h * w)
-        s1 = sum(t.float().sum(dim=(3, 4), keepdim=True) for t in mask_modes)
-        s2 = sum(t.float().square().sum(dim=(3, 4), keepdim=True) for t in mask_modes)
-        mean = s1 / npix
-        var = s2 / npix - mean.square()
-        mask_modes = [torch.sigmoid(self.normalize(t, stats=(mean, var))) for t in mask_modes]
-
         mx = mask_modes[0]
         for t in mask_modes[1:]:
             mx = torch.maximum(mx, t)
@@ -171,3 +208,35 @@ class MaskingAttention(nn.Module):
             avg = sum(gated) / m
             return sum(t * t for t in gated) / m - avg * avg
         return sum(gated) / m
+
+    @staticmethod
+    def _mode_stats(mask_modes):
+        """f32 (mean, var) over (mode, h, w) per (sample, plane, channel) of
+        the M mask volumes [B, F, D, H, W], as E[x^2] - E[x]^2."""
+        h, w = mask_modes[0].shape[-2:]
+        npix = float(len(mask_modes) * h * w)
+        s1 = sum(t.float().sum(dim=(3, 4), keepdim=True) for t in mask_modes)
+        s2 = sum(t.float().square().sum(dim=(3, 4), keepdim=True) for t in mask_modes)
+        mean = s1 / npix
+        return mean, s2 / npix - mean.square()
+
+    def forward(self, x: torch.Tensor, shift_fn) -> torch.Tensor:
+        conv0, bn, _, tail = self.mask_convs
+        y_modes = shift_fn(x)  # M x [B, C, D, H, W]
+        m = len(y_modes)
+        b, c, d, h, w = y_modes[0].shape
+        folded = torch.cat(y_modes, dim=0)  # [M*B, C, D, H, W]
+        mask = F.conv3d(folded, conv0.weight, padding=(0, 1, 1))
+        # BatchNorm over every (mode, sample, plane, pixel): D*H folded into
+        # one axis of the 4-D layout the module takes
+        mask = torch.relu(bn(mask.reshape(m * b, -1, d * h, w))).reshape(m * b, -1, d, h, w)
+        mask_modes = list(F.conv3d(mask, tail[0].weight).chunk(m, dim=0))
+        return self._gate(y_modes, mask_modes)
+
+    def forward_fast(self, x: torch.Tensor, shift_fn) -> torch.Tensor:
+        conv0, bn, _, tail = self.mask_convs
+        mask = F.conv2d(x, conv0.weight[:, :, 0], padding=1)
+        mask = F.conv2d(torch.relu(bn(mask)), tail[0].weight[:, :, 0])
+        y_modes = shift_fn(x)        # M x [B, C, D, H, W]
+        mask_modes = shift_fn(mask)  # M x [B, F, D, H, W]
+        return self._gate(y_modes, mask_modes)

@@ -1,10 +1,15 @@
 """The serving rate of the port on the card, and where its time goes.
 
-    python3 -m dualpixelface_tpu_torch.profile_serving [--iters 50] [--top 25]
+    python3 -m dualpixelface_tpu_torch.profile_serving [--model stereodpnet_plus] [--iters 50] [--top 25]
 
-Runs the stereodpnet_plus serving forward at the serving cell's shape
-(batch B = 4 at H x W = 768 x 576, bf16, seeded weights with non-zero
-offset heads) after a warm-up and prints, as JSON lines:
+Runs a serving forward at the serving cell's shape (batch B = 4 at
+H x W = 768 x 576, bf16, seeded weights with non-zero offset heads) after a
+warm-up: `--model stereodpnet_plus` (the default) is the serving
+configuration the JAX bench's headline measures (fast attention, windowed
+deform with the offset clamp, fused regression); `--model stereodpnet` is
+its reference-exact forward (`bench.py`'s `exact` mode: exact attention,
+unbounded deform, unfused regression, so `prob_depth` is returned). It
+prints, as JSON lines:
   * the serving rate (`timed` over --iters request batches);
   * each stage's device time (CUDA events around the model's top-level
     modules; the regression is the span between aggregation and the ANM);
@@ -27,6 +32,7 @@ from dualpixelface_tpu_torch.serve import Predictor, bench_batch, seeded_state_d
 from dualpixelface_tpu_torch.tools import device_busy_us
 
 B, H, W = 4, 768, 576
+MODELS = ("stereodpnet_plus", "stereodpnet")
 STAGES = ("feature_extraction", "cost_volume", "aggregation", "normal_estimator")
 
 
@@ -44,12 +50,15 @@ def timed(run, batches: list, check=None) -> dict:
     `check(result)` is called on each result outside the timed spans.
     Returns the pairs over the summed latencies, the number of calls, and
     the latencies' median, min and max in seconds. It gives the serving rate
-    (`run` a `Predictor`) and the train rate (`run` one train step)."""
+    (`run` a `Predictor`) and the train rate (`run` one train step). A run
+    in a process that never used the card (the CPU) has nothing to
+    synchronise."""
     lat = []
     for batch in batches:
         t0 = time.perf_counter()
         res = run(batch)
-        torch.cuda.synchronize()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         if check is not None:
             check(res)
@@ -119,20 +128,23 @@ def device_profile(run, reps: int, top: int) -> list[dict]:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=MODELS, default="stereodpnet_plus")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a GPU")
 
-    config = load_config("stereodpnet_plus")
+    config = load_config(args.model)
     pred = Predictor(config, seeded_state_dict(config), device="cuda", dtype=torch.bfloat16)
     batch = bench_batch(B, H, W)
     pred(batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     rate = timed(pred, [batch] * args.iters)
-    print(json.dumps({"serving": rate, "card": _card(), "batch": B, "hw": [H, W]}), flush=True)
+    print(json.dumps({"serving": rate, "model": args.model, "card": _card(), "batch": B, "hw": [H, W],
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
     print(json.dumps({"stage_ms": stage_times(pred.model, lambda: pred(batch))}), flush=True)
 
     for line in device_profile(lambda: pred(batch), reps=2, top=args.top):

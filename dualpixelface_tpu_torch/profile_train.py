@@ -1,14 +1,17 @@
 """The train-step rate of the port on the card, and where its time goes.
 
-    python3 -m dualpixelface_tpu_torch.profile_train [--iters 30] [--top 25]
+    python3 -m dualpixelface_tpu_torch.profile_train [--cell stereodpnet_plus|bench] [--iters 30] [--top 25]
 
-Trains the `stereodpnet_plus` train cell (fast attention, offset clamp),
-batch 2 under the bf16 policy (the run keys TRAIN_CELL), on the JAX
-bench's batch recipe (`train_batch`), H x W = 768 x 576, Adam at the
-configured rate, from seeded weights with non-zero offset heads, after one
-warm-up step. The JAX bench's own train step (`bench.py:306-317`:
-`stereodpnet`, exact attention, no offset clamp) waits for the port of
-that configuration. It prints, as JSON lines:
+Trains one of two cells (`CELLS`), batch 2 under the bf16 policy (the run
+keys TRAIN_CELL), on the JAX bench's batch recipe (`train_batch`),
+H x W = 768 x 576, Adam at the configured rate, from seeded weights with
+non-zero offset heads, after one warm-up step:
+  * `stereodpnet_plus` (the default): fast attention, windowed deform with
+    the offset clamp, fused regression;
+  * `bench`: the JAX bench's own train step (`bench.py:306-317`):
+    `stereodpnet` with exact attention, the windowed deform without the
+    offset clamp, fused regression.
+It prints, as JSON lines:
   * the train rate (`profile_serving.timed` over --iters steps) and the
     peak device memory of a step;
   * each phase's device time in one step: the forward's top-level stages
@@ -36,9 +39,21 @@ from dualpixelface_tpu_torch.train.state import create_train_state
 from dualpixelface_tpu_torch.train.steps import make_train_step
 
 H, W = 768, 576
-# The run keys of the `stereodpnet_plus` train cell (fast attention, offset
-# clamp): batch 2 under the bf16 policy, on the JAX bench's batch recipe.
+# The run keys of both train cells: batch 2 under the bf16 policy, on the
+# JAX bench's batch recipe.
 TRAIN_CELL = {"precision": "bf16", "batch_size": 2}
+# Each cell's model config and its overrides: the `stereodpnet_plus` cell
+# (fast attention, offset clamp) and the JAX bench's train step (`bench`:
+# `stereodpnet`, exact attention, windowed deform, no offset clamp).
+CELLS = {"stereodpnet_plus": ("stereodpnet_plus", {}),
+         "bench": ("stereodpnet", {"deform_impl": "pallas", "fused_regression": True})}
+
+
+def cell_config(cell: str = "stereodpnet_plus"):
+    """The merged config of train cell `cell`: its model and overrides, and
+    the run keys TRAIN_CELL."""
+    model, overrides = CELLS[cell]
+    return load_config(model, model_overrides=overrides, run_overrides=TRAIN_CELL)
 
 
 def train_batch(b: int, h: int, w: int, seed: int = 0) -> dict:
@@ -106,13 +121,14 @@ def phase_times(step, state, batch) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--cell", choices=tuple(CELLS), default="stereodpnet_plus")
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a GPU")
 
-    config = load_config("stereodpnet_plus", run_overrides=TRAIN_CELL)
+    config = cell_config(args.cell)
     dtype = resolve_policy(config)
     state = create_train_state(config, steps_per_epoch=100, state_dict=seeded_state_dict(config), device="cuda")
     step = make_train_step(state.model, loss_selector(config), dtype)
@@ -122,7 +138,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
 
     rate = timed(lambda b: step(state, b)[1], [batch] * args.iters)
-    print(json.dumps({"train": rate, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    print(json.dumps({"train": rate, "cell": args.cell, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                       "card": _card(), "batch": config.batch_size, "hw": [H, W],
                       "dtype": str(dtype).removeprefix("torch.")}), flush=True)
     print(json.dumps({"phase_ms": phase_times(step, state, batch)}), flush=True)

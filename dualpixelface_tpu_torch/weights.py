@@ -5,7 +5,9 @@
 Flax StereoDPNet variable tree onto the reference torch `state_dict` names
 the port's modules carry (the port's own
 numpy copy of the mapping in `tools/export_stereodpnet_checkpoint.py`), so
-a JAX-trained checkpoint loads into the port with `strict=True`. Flax conv
+a JAX-trained checkpoint loads into the port with `strict=True` (the ASM's
+PReLU of `asm_activation: "relu"`, which the exporter leaves out, is mapped
+to `cost_volume.attention_layer.prelu.weight`). Flax conv
 kernels [*k, I, O] become torch [O, I, *k]; transposed-conv kernels
 [*k, O, I] become torch ConvTranspose [I, O, *k].
 """
@@ -86,6 +88,35 @@ class _Mapper:
         for cname in ("conv5", "conv6"):
             self.tconvbn(f"{fpath}/{cname}", f"{tname}.{cname}")
 
+    def attention(self, fpath, tname):
+        """The ASM's MaskingAttention (fast and exact share the tree)."""
+        self.conv(f"{fpath}/Conv_0", f"{tname}.mask_convs.0")
+        self.bn(f"{fpath}/BatchNorm_0", f"{tname}.mask_convs.1")
+        self.conv(f"{fpath}/Conv_1", f"{tname}.mask_convs.3.0")
+        p = self._get(self.params, f"{fpath}/InstanceNorm_0/GroupNorm_0")
+        # the reference registers its InstanceNorm twice (attribute + Sequential)
+        for name in (f"{tname}.normalize", f"{tname}.mask_convs.3.1"):
+            self.sd[f"{name}.weight"] = np.asarray(p["scale"])
+            self.sd[f"{name}.bias"] = np.asarray(p["bias"])
+        if "PReLU_0" in self._get(self.params, fpath):
+            # asm_activation "relu": the exporter names no PReLU; the port's
+            # MaskingAttention calls it `prelu`
+            self.prelu(f"{fpath}/PReLU_0", f"{tname}.prelu.weight")
+
+    def anm(self, fpath, tname):
+        """The ANM: the deform convs and their BatchNorms, or the ConvBN3D
+        pair of `use_deform=false` (`original_conv`), then the 2-D stack."""
+        p = self._get(self.params, fpath)
+        if "deform_conv1" in p:
+            for i in (1, 2):
+                self.deform_pack(f"{fpath}/deform_conv{i}", f"{tname}.deform_conv{i}")
+                self.bn(f"{fpath}/act{i}", f"{tname}.act{i}.0")
+        if "orig_conv0" in p:
+            self.convbn(f"{fpath}/orig_conv0", f"{tname}.original_conv.0")
+            self.convbn(f"{fpath}/orig_conv1", f"{tname}.original_conv.2")
+        for i in range(6):
+            self.conv(f"{fpath}/n_convs{i}", f"{tname}.n_convs.{i}.0")
+
     def deform_pack(self, fpath, tname):
         self.sd[f"{tname}.weight"] = _f2t_conv(self._get(self.params, f"{fpath}/weight"))
         self.sd[f"{tname}.bias"] = np.asarray(self._get(self.params, f"{fpath}/bias"))
@@ -112,15 +143,7 @@ def state_dict_from_jax(params, batch_stats, block_stack: int = 1) -> dict[str, 
     m.convbn(f"{fe}/lastconv0", f"{fe}.lastconv.0")
     m.convbn(f"{fe}/lastconv1", f"{fe}.lastconv.2")
 
-    at, AT = "cost_volume/attention", "cost_volume.attention_layer"
-    m.conv(f"{at}/Conv_0", f"{AT}.mask_convs.0")
-    m.bn(f"{at}/BatchNorm_0", f"{AT}.mask_convs.1")
-    m.conv(f"{at}/Conv_1", f"{AT}.mask_convs.3.0")
-    p = m._get(params, f"{at}/InstanceNorm_0/GroupNorm_0")
-    # the reference registers its InstanceNorm twice (attribute + Sequential)
-    for tname in (f"{AT}.normalize", f"{AT}.mask_convs.3.1"):
-        m.sd[f"{tname}.weight"] = np.asarray(p["scale"])
-        m.sd[f"{tname}.bias"] = np.asarray(p["bias"])
+    m.attention("cost_volume/attention", "cost_volume.attention_layer")
 
     ag = "aggregation"
     m.convbn(f"{ag}/dres0_0", f"{ag}.dres0.0")
@@ -133,18 +156,8 @@ def state_dict_from_jax(params, batch_stats, block_stack: int = 1) -> dict[str, 
         m.convbn(f"{ag}/classif{i}_0", f"{ag}.classif{i}.0")
         m.conv(f"{ag}/classif{i}_1", f"{ag}.classif{i}.2")
 
-    ne = "normal_estimator"
-    nep = params.get(ne, {})
-    if "deform_conv1" in nep:
-        for i in (1, 2):
-            m.deform_pack(f"{ne}/deform_conv{i}", f"{ne}.deform_conv{i}")
-            m.bn(f"{ne}/act{i}", f"{ne}.act{i}.0")
-    if "orig_conv0" in nep:
-        m.convbn(f"{ne}/orig_conv0", f"{ne}.original_conv.0")
-        m.convbn(f"{ne}/orig_conv1", f"{ne}.original_conv.2")
-    if nep:
-        for i in range(6):
-            m.conv(f"{ne}/n_convs{i}", f"{ne}.n_convs.{i}.0")
+    if params.get("normal_estimator"):
+        m.anm("normal_estimator", "normal_estimator")
     return m.sd
 
 
