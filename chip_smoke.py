@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3b. the same for the backward kernels at the train path's shapes: K2 (all
      four gradients, both apertures, a quarter of the offsets whole numbers
      and some on the window bound; each check names its route, the
-     tensor cores for bf16 and the SIMT kernel for f32);
+     tensor cores for bf16 and the SIMT kernel for f32), then K2's f32
+     route at the trainer path's batch 4 (phase 10), against its plain
+     version on two batch-2 halves;
   3c. K1 (Cin 35 and 64, both apertures), K5 (Cin 35 and 64), T1 (Co 32
      and 64, without and with the folded BatchNorm and ReLU) and K2 (Cin 35
      and 64, both apertures) at small ragged shapes (`EDGE_SHAPES`: M no
@@ -27,7 +29,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      coarse shape for D = 8, 5 and 16 and at (50, 36) for every D = 1..16
      (each instantiation), then logits of scale 30 with a cell of planes
      near -200 and one whose bins all underflow below the max over its
-     planes, f32 and bf16; K4 twice on the same inputs, bit for bit;
+     planes, f32 and bf16; K4 twice on the same inputs, bit for bit; then
+     K4 in f32 at the trainer path's batch 4 (phase 10), D = 8;
   4. time each forward kernel, its plain version and, for K5, cuDNN's
      conv3d (which the port never calls) in NCDHW and in channels_last_3d
      (the kernel's own NDHWC), the faster of the two as its `library_ms`,
@@ -73,14 +76,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      `python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold` (768x576,
      batch 4), each checked against its plain version and then driven
      through its tool's measurement, timed beside its bound; before them,
-     T4 at ragged m (1, 33, 130) and k (8, 72, 2248), f32 and bf16.
+     T4 at ragged m (1, 33, 130) and k (8, 72, 2248), f32 and bf16;
+  10. the trainer (`train/trainer.Trainer`) on the run config
+     `train_synthetic_stereodpnet_plus` as committed (f32, Adam, 2
+     DataLoader workers, pinned memory), batch 4 at 768x576 crops, SyntheticDP
+     cut to 2 train steps and 2 eval batches (the second padded): `fit()`
+     then `test()` with the launch counts held per train step (K1 2, K2 2,
+     K3 3, K4 3, K5 2) and per eval forward (K1 2, K3 1, K5 2), one
+     checkpoint, a train and a test record with finite losses, and a fresh
+     trainer restoring the checkpoint in test mode giving the same metric
+     aggregates to rtol 1e-4; it prints steps per second, the seconds the
+     loop waited on the DataLoader, the peak memory, the host
+     preprocessing path (native where `native/libdphost.so` is built, else
+     numpy) and the f32 kernels' device ms in one more train step;
+  10b. the CLI as a user calls it, `python -m dualpixelface_tpu_torch.main
+     --config <tmp>/configs/smoke.json --workspace chip_smoke` in a
+     subprocess (the same run config with epoch 1: 8 steps of batch 8 at
+     its own 288x192 crops, then a test pass): rc 0, both records, the
+     checkpoint; then its workspace is removed.
 Each phase prints its wall seconds (`phase_seconds`).
 Then one line sets K5's bf16 time beside cuDNN's faster layout and T1's
 beside the ConvBN3D + ReLU chain, summed over their shapes (a reading,
 not a check).
 The line before the last is the `kernels` JSON with nine rows (launches:
 K1-K5 the train path's run of phase 7, `launches_serving` phase 5's,
-`launches_serving_exact` phase 5b's, `launches_train_bench` phase 7b's;
+`launches_serving_exact` phase 5b's, `launches_train_bench` phase 7b's,
+`launches_trainer` phase 10's, fit and test, every row;
 T1-T4 the tools' measurements in phase 9, whose T rows sum the runs' times
 and bounds; K1-K5 also carry `device_ms`, phases 4-4c's time on the device
 alone); the last line is {"ok": true, "device": {...}}.
@@ -119,6 +140,12 @@ TRAIN_ANM_SHAPE = (TB, 4, H // 4, W // 4)
 # decides.
 BWD_TOL = {"float32": {"gx": 1e-4, "goff": 1e-4, "gw": 2e-5, "gb": 1e-4},
            "bfloat16": {"gx": 1e-2, "goff": 2e-2, "gw": 2e-2, "gb": 1e-2}}
+
+# The trainer path's shapes (phase 10: the committed f32 run config at
+# batch 4, train_faceDP's, on 768x576 crops): the ANM volume
+# [4, 4, 192, 144, C] and the coarse logits [4, 8, 192, 144], in f32.
+TRAINER_BATCH = 4
+TRAINER_ANM_SHAPE = (TRAINER_BATCH, 4, H // 4, W // 4)
 
 # The least f32 work (FMA = 2 operations) per (voxel, tap, input channel)
 # outside the contractions, which run on the tensor cores; the per-(voxel,
@@ -352,7 +379,11 @@ def check_and_time_backward_kernels(torch, err, timing):
     """Phases 3b and 4b: K2 against autograd through its plain version at
     the train path's shapes, in f32 and bf16; its times at bf16, the train
     dtype, with CUDA events and on the device alone. The plain K2 at this shape holds ~30 GB of
-    autograd state, so each comparison frees it before the next."""
+    autograd state, so each comparison frees it before the next. Then K2's
+    f32 route at the trainer path's batch 4 (`TRAINER_ANM_SHAPE`), Cin 35
+    and 64, both apertures, within the same `BWD_TOL`: the plain version
+    runs on the two batch-2 halves (its autograd state at batch 4 would be
+    ~60 GB), gx and goff concatenated, gw and gb summed."""
     from dualpixelface_tpu_torch.tools import cuda_ms, device_ms
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain
 
@@ -390,6 +421,23 @@ def check_and_time_backward_kernels(torch, err, timing):
             # x, offset, weight and g read; gx, goff and gw written
             k2["bytes"] += sum(t.numel() * t.element_size() for t in (x, off, w)) * 2 + g.numel() * g.element_size()
 
+    for cin in CINS:
+        x, off, w, bias, _, _ = kernel_inputs(torch, gen, cin, torch.float32, TRAINER_ANM_SHAPE, on_bound=True)
+        g = torch.randn(TRAINER_ANM_SHAPE + (COUT,), generator=gen, device="cuda")
+        for aperture in (True, False):
+            got = deform_conv3d_bwd(x, off, w, bias, g, aperture=aperture)
+            halves = []
+            for rows in (slice(0, TRAINER_BATCH // 2), slice(TRAINER_BATCH // 2, None)):
+                halves.append(deform_conv3d_bwd_plain(x[rows], off[rows], w, bias, g[rows], aperture=aperture))
+                torch.cuda.empty_cache()
+            (gx0, goff0, gw0, gb0), (gx1, goff1, gw1, gb1) = halves
+            ref = (torch.cat([gx0, gx1]), torch.cat([goff0, goff1]), gw0 + gw1, gb0 + gb1)
+            for gname, a, r in zip(("gx", "goff", "gw", "gb"), got, ref):
+                compare(f"K2 deform_conv3d_bwd [{bwd_route(torch.float32)}] {gname} B={TRAINER_BATCH} Cin={cin} "
+                        f"aperture={aperture} (the trainer's)", a, r, "float32", BWD_TOL["float32"][gname])
+            del got, ref, halves
+            torch.cuda.empty_cache()
+
 
 # K3 and K4 (phase 3d): the coarse plane counts held at the paths' shape
 # (the configs' 8, and 5 and 16; at (50, 36) every D the kernels are
@@ -422,7 +470,9 @@ def check_and_time_softargmin(torch, err, timing):
     bit. Then each kernel's time at its path's shape in bf16: event-timed
     (`cuda_ms`, the host's dispatch included) and on the device alone
     (`device_ms`), beside its plain version and its bound (bytes, f32
-    operations and exps, `tools.bench_softargmin.work`)."""
+    operations and exps, `tools.bench_softargmin.work`). Also K4 in f32 at
+    the trainer path's batch 4, D = 8, (192, 144) (K3's f32 check at that
+    shape is the first case above)."""
     from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import (
         fused_softargmin, fused_softargmin_bwd, fused_softargmin_bwd_plain, fused_softargmin_plain)
     from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
@@ -454,6 +504,10 @@ def check_and_time_softargmin(torch, err, timing):
         print(f"check K4 {dname}: two calls on the same inputs agree bit for bit in every case", flush=True)
 
     disp = regression_disparities(-4, 12, 8, 4)
+    cost = softargmin_cost(torch, gen, TRAINER_BATCH, 8, (H // 4, W // 4), torch.float32)
+    g = torch.randn((TRAINER_BATCH, H, W), generator=gen, device="cuda")
+    compare(f"K4 fused_softargmin_bwd B={TRAINER_BATCH} D=8 h,w={(H // 4, W // 4)} (the trainer's)",
+            fused_softargmin_bwd(cost, g, disp, 4), fused_softargmin_bwd_plain(cost, g, disp, 4), "float32")
     cost = softargmin_cost(torch, gen, B, 8, (H // 4, W // 4), torch.bfloat16)
     tcost = softargmin_cost(torch, gen, TB, 8, (H // 4, W // 4), torch.bfloat16)
     g = torch.randn((TB, H, W), generator=gen, device="cuda").to(torch.bfloat16)
@@ -846,6 +900,226 @@ def train_against_cpu(torch):
     fail(f"phase 8: card and CPU took another side of some kink at every point of {CPU_POINTS}")
 
 
+# phase 10: the trainer's run config, cut to 2 train steps and 2 eval
+# batches: batch 4 (train_faceDP's), images of 1024x768, whose committed
+# soft crop (ratio 0.75, factor 96) is the reference's 768x576; 8 train
+# samples, 6 test samples (the second eval batch padded by 2 rows).
+TRAINER_CONFIG = "train_synthetic_stereodpnet_plus"
+TRAINER_DATA = {"height": 1024, "width": 768, "train_samples": 8, "test_samples": 6}
+TRAIN_STEP_LAUNCHES = {"K1": 2, "K2": 2, "K3": 3, "K4": 3, "K5": 2}
+EVAL_LAUNCHES = {"K1": 2, "K3": 1, "K5": 2}
+# each kernel's entry functions on the card (both routes), for its device
+# time in a train step
+KERNEL_FUNCS = {"K1": ("deform_conv3d_kernel", "deform_fwd_tc_kernel"),
+                "K2": ("deform_bwd_kernel", "deform_bwd_tc_kernel", "reduce_gw_kernel", "cast_depad_kernel"),
+                "K3": ("fsam_fwd_kernel",), "K4": ("fsam_bwd_kernel",), "K5": ("conv3d_k3_f32_kernel", "conv3d_tc_kernel")}
+
+
+class TimedPipeline:
+    """A trainer's pipeline that records the seconds its consumer waited
+    for each batch, and each batch's image shape and real rows."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.wait = 0.0
+        self.shapes: set = set()
+        self.valid: list = []
+        self.last = None
+
+    def set_epoch(self, epoch):
+        self.pipe.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.pipe)
+
+    def __iter__(self):
+        it = iter(self.pipe)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.wait += time.perf_counter() - t
+            self.shapes.add(tuple(batch["left"].shape))
+            self.valid.append(int(batch["_valid"].sum()))
+            self.last = batch
+            yield batch
+
+
+def kernel_step_profile(torch, step) -> dict:
+    """torch.profiler over one call of `step` after a warm-up call: the
+    device ms of each kernel K1-K5 (its entry functions), the device's busy
+    ms and the wall ms."""
+    from dualpixelface_tpu_torch.tools import device_busy_us
+
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        fail("phase 10: the profiler recorded no device activity in a train step")
+    per_kernel = {}
+    for k, funcs in KERNEL_FUNCS.items():
+        pattern = re.compile(r"\b(" + "|".join(funcs) + r")\b")
+        per_kernel[k] = sum(e.time_range.end - e.time_range.start for e in events if pattern.search(e.name)) / 1e3
+    return {"kernels_ms": per_kernel, "kernels_sum_ms": sum(per_kernel.values()),
+            "device_busy_ms": device_busy_us(events) / 1e3, "wall_ms": wall_ms}
+
+
+def trainer_full_width(torch, card):
+    """Phase 10: `Trainer.fit` then `test()` of the run config
+    TRAINER_CONFIG (f32, Adam, 2 DataLoader workers, pinned memory, as
+    committed) at 768x576 crops, batch 4, on SyntheticDP cut to 2 train
+    steps and 2 eval batches (TRAINER_DATA), in a workspace under a copy of
+    configs/ in build/; the launch counts set to 0 just before `fit` and
+    before `test`, and read just after each. Then a fresh trainer in test
+    mode restoring the epoch's checkpoint (`load_model`) must give the same
+    metric aggregates to rtol 1e-4, and one more train step is profiled for
+    the kernels' device time. Returns the phase's counts (fit + test)."""
+    import shutil
+    import tempfile
+
+    from dualpixelface_tpu_torch.config import Configuration
+    from dualpixelface_tpu_torch.data.pipeline import numeric_batch
+    from dualpixelface_tpu_torch.data.preprocess import native
+    from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualpixelface_tpu_torch.ops.precision import resolve_policy
+    from dualpixelface_tpu_torch.train.trainer import Trainer
+
+    # the loaders' host preprocessing: native/libdphost.so where `make -C
+    # native` has built it (it needs OpenMP), else the numpy chain
+    host_path = "native" if native.available() else "numpy"
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase10_", dir=ROOT / "build"))
+    try:
+        shutil.copytree(ROOT / "configs", tmp / "configs")
+
+        def option(overrides=None, load_model=None):
+            cfg = Configuration(TRAINER_CONFIG, "phase10", load_model=load_model, root=tmp,
+                                overrides={"epoch": 1, "batch_size": TRAINER_BATCH, **(overrides or {})})
+            cfg.data["dataset"].update(TRAINER_DATA)
+            return cfg.get_config()
+
+        opt = option()
+        if resolve_policy(opt) != torch.float32 or opt.optim != "adam":
+            fail(f"phase 10: the run config gives {resolve_policy(opt)}, {opt.optim}; f32 and adam are committed")
+        trainer = Trainer(opt)  # the card: CUDA is the default
+        pipes = []
+        make_pipe = trainer._pipeline
+
+        def timed_pipeline(training):
+            pipes.append(TimedPipeline(make_pipe(training)))
+            return pipes[-1]
+
+        trainer._pipeline = timed_pipeline
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        agg = trainer.test()
+        test_s = time.perf_counter() - t0
+        test_launches = launch_counts()
+
+        steps = TRAINER_DATA["train_samples"] // TRAINER_BATCH
+        batches = -(-TRAINER_DATA["test_samples"] // TRAINER_BATCH)
+        for label, got, per, n in (("fit", fit_launches, TRAIN_STEP_LAUNCHES, steps),
+                                   ("test", test_launches, EVAL_LAUNCHES, batches)):
+            want = {**dict.fromkeys(got, 0), **{k: c * n for k, c in per.items()}}
+            print(f"trainer {label} launches {got} (expected {want})", flush=True)
+            if got != want:
+                fail(f"phase 10: {label} launch counts {got} != {want}: the trainer did not run through every kernel")
+        crop = (TRAINER_BATCH, H, W, 3)
+        if [p.shapes for p in pipes] != [{crop}, {crop}] or pipes[1].valid != [4, 2] or trainer.state.step != steps:
+            fail(f"phase 10: batches {[p.shapes for p in pipes]}, eval rows {pipes[1].valid}, "
+                 f"steps {trainer.state.step}; expected {crop} crops, rows [4, 2], {steps} steps")
+        records = [json.loads(line) for line in (Path(opt.output_path) / "metrics.jsonl").read_text().splitlines()]
+        ckpts = sorted(p.name for p in Path(opt.ckpt_path).iterdir())
+        losses = {k: v for k, v in records[0].items() if k.endswith("_loss")}
+        if [r["mode"] for r in records] != ["train", "test"] or ckpts != ["checkpoint_00.pt"] or \
+                len(losses) != 3 or not all(math.isfinite(v) for v in losses.values()):
+            fail(f"phase 10: records {records}, checkpoints {ckpts}")
+
+        restored = Trainer(option({"mode": "test"}, load_model=str(Path(opt.ckpt_path) / "checkpoint_00.pt")))
+        agg2 = restored.test()
+        worst = max(abs(agg2[m][k] - v) / max(abs(v), 1e-30) for m, d in agg.items() for k, v in d.items())
+        print(f"restored checkpoint vs trainer: metric aggregates largest rel diff {worst:.3e} (tol 1e-4)", flush=True)
+        if set(agg2) != set(agg) or worst > 1e-4:
+            fail("phase 10: the restored checkpoint's metrics differ from the trainer's")
+        del restored
+
+        batch = {k: v for k, v in numeric_batch(pipes[0].last).items() if k != "_valid"}
+        profile = kernel_step_profile(torch, lambda: trainer.train_step(trainer.state, trainer._to_device(batch)))
+        print(json.dumps({"trainer_smoke": {
+            "config": TRAINER_CONFIG, "batch": TRAINER_BATCH, "crop": [H, W], "precision": "float32",
+            "steps": steps, "fit_s": fit_s, "steps_per_s": steps / fit_s, "dataloader_wait_s": pipes[0].wait,
+            "dataloader_wait_share": pipes[0].wait / fit_s, "test_s": test_s, "test_wait_s": pipes[1].wait,
+            "peak_memory_gb": peak, "workers": opt.workers, "pin_memory": opt.pin_memory,
+            "host_preprocessing": host_path, "losses": losses, "train_step_profile": profile, "card": card}}),
+            flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+        return {k: fit_launches[k] + test_launches[k] for k in fit_launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_subprocess(card):
+    """Phase 10b: `python -m dualpixelface_tpu_torch.main --config
+    <tmp>/configs/smoke.json --workspace chip_smoke` as a user calls it, in
+    a subprocess under a timeout: smoke.json is TRAINER_CONFIG with epoch 1
+    (8 steps of batch 8 on its own 384x288 data, 288x192 crops, then a test
+    pass). Checks rc 0, the train and test records and the checkpoint, then
+    removes the workspace it made."""
+    import shutil
+    import tempfile
+
+    ws = ROOT / "workspace" / "stereodpnet_plus" / "chip_smoke"
+    if ws.exists():
+        fail(f"phase 10b: {ws} exists already; it is not this run's to remove")
+    made = [d for d in (ROOT / "workspace", ws.parent) if not d.exists()]
+    tmp = Path(tempfile.mkdtemp(prefix="phase10b_", dir=ROOT / "build"))
+    try:
+        run = json.loads((ROOT / "configs" / f"{TRAINER_CONFIG}.json").read_text())
+        run["epoch"] = 1
+        (tmp / "configs").mkdir()
+        (tmp / "configs" / "smoke.json").write_text(json.dumps(run))
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "dualpixelface_tpu_torch.main", "--config",
+                              str(tmp / "configs" / "smoke.json"), "--workspace", "chip_smoke"],
+                             cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"phase 10b: the CLI exited {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        records = [json.loads(line) for line in (ws / "output" / "metrics.jsonl").read_text().splitlines()]
+        ckpts = sorted(p.name for p in (ws / "checkpoints").iterdir())
+        train = records[0] if records else {}
+        if [r["mode"] for r in records] != ["train", "test"] or ckpts != ["checkpoint_00.pt"] or \
+                train.get("steps") != 8.0 or not math.isfinite(train.get("final_loss", math.nan)):
+            fail(f"phase 10b: records {records}, checkpoints {ckpts}")
+        print(json.dumps({"cli_smoke": {"config": "smoke.json", "rc": out.returncode, "cli_s": cli_s,
+                                        "train_record": train, "test_record": records[1], "card": card}}),
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(ws, ignore_errors=True)
+        for d in reversed(made):
+            if d.exists() and not any(d.iterdir()):
+                d.rmdir()
+
+
 def main() -> int:
     import torch
 
@@ -895,6 +1169,8 @@ def main() -> int:
     launches_bench = phase("7b", train_full_width, torch, sd, card, "bench")
     phase("8", train_against_cpu, torch)
     tools = phase("9", tools_phase, torch)
+    launches_trainer = phase("10", trainer_full_width, torch, card)
+    phase("10b", cli_subprocess, card)
     print(json.dumps({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0}), flush=True)
     k5, t1 = timing["K5"], tools["T1"]
     chain_ms = sum(r["chain_ms"] for r in t1["runs"])
@@ -915,7 +1191,8 @@ def main() -> int:
             "name": f"{k} {NAMES[k]}", "route": "cuda",
             "source": f"dualpixelface_tpu_torch/csrc/{SOURCES[k]}", "replaces": TPU_SITES[k],
             "launches": launches[k], "launches_serving": serving[k], "launches_serving_exact": serving_exact[k],
-            "launches_train_bench": launches_bench[k], "max_abs_err": err[k], "ms": t["ms"],
+            "launches_train_bench": launches_bench[k], "launches_trainer": launches_trainer[k],
+            "max_abs_err": err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],
         })
@@ -923,7 +1200,8 @@ def main() -> int:
         kernels.append({
             "name": f"{k} {NAMES[k]}", "route": "cuda",
             "source": f"dualpixelface_tpu_torch/csrc/{SOURCES[k]}", "replaces": TPU_SITES[k],
-            "launches": row["launches"], "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "launches": row["launches"], "launches_trainer": launches_trainer[k], "max_abs_err": row["err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": "operations" if 2 * row["bound_ops_ms"] >= row["bound_ms"] else "bytes",
             "library_ms": row["library_ms"], "runs": len(row["runs"]),

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of dualpixelface_tpu for NVIDIA Hopper (H100).
 
 The JAX package `dualpixelface_tpu` is the reference; this package mirrors
-its module tree (`ops/`, `ops/kernels/`, `models/`) and result contract. The
-TPU Pallas kernels on the serving path are hand-written CUDA kernels here
-(`csrc/`), built with nvcc at first use. Entry points run on the card unless
+its module tree (`config/`, `data/`, `ops/`, `ops/kernels/`, `models/`,
+`losses/`, `metrics/`, `train/`, `utils/`) and result contract, with its
+own CLI (`python -m dualpixelface_tpu_torch.main`). The TPU Pallas kernels
+are hand-written CUDA kernels here (`csrc/`), built with nvcc at first use. Entry points run on the card unless
 the caller asks for the CPU, where every kernel wrapper takes its plain
 PyTorch version.
 """

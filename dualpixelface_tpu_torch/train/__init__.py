@@ -1,2 +1,3 @@
 """Training of the port: optimizers and schedules (`optim`), the train
-state (`state`) and the train / eval steps (`steps`)."""
+state (`state`), the train / eval steps (`steps`), the checkpoints
+(`checkpoint`) and the epoch loop (`trainer.Trainer`)."""

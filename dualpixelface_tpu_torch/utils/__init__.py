@@ -1,5 +1,6 @@
 """Host-side helpers (counterpart of `dualpixelface_tpu/utils/`): the
-metric packs' table printer and `tensor2numpy`."""
+metric packs' table printer, `tensor2numpy`, and the modules
+`file_manager`, `profiling` and `visualizer`."""
 from __future__ import annotations
 
 import numpy as np

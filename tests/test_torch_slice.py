@@ -152,16 +152,21 @@ def test_offsets_only_on_request(jax_side):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the bench script and the metric
-    packs among them) leaves jax, flax and the JAX package out of
-    sys.modules."""
+    """Importing every module of the port (the bench script, the metric
+    packs, the config manager, the loaders and preprocessing, the trainer,
+    its checkpoints and the CLI among them) leaves jax, flax, the JAX
+    package and `tools/` out of sys.modules."""
     code = (
         "import pkgutil, sys, dualpixelface_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "[__import__(n) for n in names]\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'dualpixelface_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'dualpixelface_tpu', 'tools'))\n"
         "assert len(names) > 15 and not bad, (len(names), bad)\n"
-        "new = {p.__name__ + '.' + n for n in ('bench', 'metrics.absolute_dp', 'metrics.affine_dp', 'metrics.normal_dp', 'utils.table')}\n"
+        "new = {p.__name__ + '.' + n for n in ('bench', 'metrics.absolute_dp', 'metrics.affine_dp', 'metrics.normal_dp', 'utils.table',\n"
+        "    'config.manager', 'data.calibration', 'data.loader_selector', 'data.pipeline', 'data.preprocess.augmentation',\n"
+        "    'data.preprocess.native', 'data.preprocess.preprocess', 'data.SyntheticDP.synthesis', 'data.SyntheticDP.loader',\n"
+        "    'data.SyntheticDP.fixture', 'data.FaceDP.path_reader', 'data.FaceDP.loader', 'models.base', 'train.checkpoint',\n"
+        "    'train.trainer', 'utils.file_manager', 'utils.profiling', 'utils.visualizer', 'main')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )
