@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. check each forward kernel (K1, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
      in bf16 and f32 (TF32 off); each K1 check names its route, the
-     tensor cores for bf16 and the SIMT kernel for f32;
+     tensor cores for bf16 and the SIMT kernel for f32; then K1 (both
+     apertures) and K5 in f32 at a data-parallel rank's batch 2 (phase 11);
   3b. the same for the backward kernels at the train path's shapes: K2 (all
      four gradients, both apertures, a quarter of the offsets whole numbers
      and some on the window bound; each check names its route, the
@@ -30,7 +31,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (each instantiation), then logits of scale 30 with a cell of planes
      near -200 and one whose bins all underflow below the max over its
      planes, f32 and bf16; K4 twice on the same inputs, bit for bit; then
-     K4 in f32 at the trainer path's batch 4 (phase 10), D = 8;
+     K4 in f32 at the trainer path's batch 4 (phase 10), D = 8, and K3 in
+     f32 at a data-parallel rank's batch 2 (phase 11), D = 8;
   4. time each forward kernel, its plain version and, for K5, cuDNN's
      conv3d (which the port never calls) in NCDHW and in channels_last_3d
      (the kernel's own NDHWC), the faster of the two as its `library_ms`,
@@ -93,7 +95,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      --config <tmp>/configs/smoke.json --workspace chip_smoke` in a
      subprocess (the same run config with epoch 1: 8 steps of batch 8 at
      its own 288x192 crops, then a test pass): rc 0, both records, the
-     checkpoint; then its workspace is removed.
+     checkpoint; then its workspace is removed. On a machine of two cards or
+     more the CLI starts gcd(8, cards) ranks through `parallel.spawn` over
+     nccl, which its output must say;
+  11. data parallelism: phase 10's run (global batch 4, 768x576, f32,
+     Adam, 2 train steps, 2 eval batches with the padded second) on 2 ranks
+     started by `parallel.spawn`, each through the Trainer on its 2 rows of
+     every batch: on the one card over gloo and, where there are two cards
+     or more, on two cards over nccl. Each rank prints its launch counts
+     (held to phase 10's per step and per eval forward: the same path at
+     half the batch), peak memory, step wall seconds and backend; the ranks
+     must hold the same state after every step (digests); rank 0 alone
+     writes the records, the log and the checkpoint; rank 0's per-step
+     global losses, parameters, BatchNorm buffers and test tables are held
+     to phase 10's at DDP_TOL (why those bounds: beside it). A rank that
+     fails fails the phase.
 Each phase prints its wall seconds (`phase_seconds`).
 Then one line sets K5's bf16 time beside cuDNN's faster layout and T1's
 beside the ConvBN3D + ReLU chain, summed over their shapes (a reading,
@@ -101,7 +117,8 @@ not a check).
 The line before the last is the `kernels` JSON with nine rows (launches:
 K1-K5 the train path's run of phase 7, `launches_serving` phase 5's,
 `launches_serving_exact` phase 5b's, `launches_train_bench` phase 7b's,
-`launches_trainer` phase 10's, fit and test, every row;
+`launches_trainer` phase 10's, fit and test, `launches_ddp` phase 11's
+per rank on the one card, fit and test, every row;
 T1-T4 the tools' measurements in phase 9, whose T rows sum the runs' times
 and bounds; K1-K5 also carry `device_ms`, phases 4-4c's time on the device
 alone); the last line is {"ok": true, "device": {...}}.
@@ -372,6 +389,16 @@ def check_and_time_kernels(torch):
             k5["flops"] += run["flops"]
             k5["bytes"] += sum(t.numel() * t.element_size() for t in (x, w_off, b_off)) + m * 81 * 2
 
+    # the f32 routes at the batch a data-parallel rank gives them (phase 11)
+    f32 = torch.float32
+    for cin in CINS:
+        x, off, w, bias, w_off, b_off = kernel_inputs(torch, gen, cin, f32, TRAIN_ANM_SHAPE)
+        for aperture in (True, False):
+            compare(f"K1 deform_conv3d_fused [{fwd_route(f32)}] B={TB} Cin={cin} aperture={aperture} (a rank's)",
+                    deform_conv3d_fused(x, off, w, bias, aperture=aperture),
+                    deform_conv3d_plain(x, off, w, bias, aperture=aperture), "float32")
+        compare(f"K5 conv3d_dslice B={TB} Cin={cin} (a rank's)", conv3d_dslice(x, w_off, b_off),
+                conv3d_dslice_plain(x, w_off, b_off), "float32")
     return err, timing
 
 
@@ -472,7 +499,8 @@ def check_and_time_softargmin(torch, err, timing):
     (`device_ms`), beside its plain version and its bound (bytes, f32
     operations and exps, `tools.bench_softargmin.work`). Also K4 in f32 at
     the trainer path's batch 4, D = 8, (192, 144) (K3's f32 check at that
-    shape is the first case above)."""
+    shape is the first case above), and K3 in f32 at a data-parallel rank's
+    batch 2 (K4's at that shape is the first case above)."""
     from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import (
         fused_softargmin, fused_softargmin_bwd, fused_softargmin_bwd_plain, fused_softargmin_plain)
     from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
@@ -519,6 +547,9 @@ def check_and_time_softargmin(torch, err, timing):
         timing[k] = {"ms": cuda_ms(fn, 20), "device_ms": device_ms(fn, 20), "plain_ms": cuda_ms(plain, 3),
                      "library_ms": None, "flops": 0.0, **bench_softargmin.work(k, shape)}
         print(json.dumps({f"{k}_run": {"shape": list(shape), **timing[k]}}), flush=True)
+    cost = softargmin_cost(torch, gen, TB, 8, (H // 4, W // 4), torch.float32)
+    compare(f"K3 fused_softargmin B={TB} D=8 h,w={(H // 4, W // 4)} (a rank's)", fused_softargmin(cost, disp, 4),
+            fused_softargmin_plain(cost, disp, 4), "float32")
 
 
 def check_edge_shapes(torch):
@@ -972,6 +1003,48 @@ def kernel_step_profile(torch, step) -> dict:
             "device_busy_ms": device_busy_us(events) / 1e3, "wall_ms": wall_ms}
 
 
+def trainer_option(root, workspace, overrides=None, load_model=None):
+    """Phase 10's cut of TRAINER_CONFIG under `root` (a copy of configs/):
+    one epoch of global batch TRAINER_BATCH on TRAINER_DATA."""
+    from dualpixelface_tpu_torch.config import Configuration
+
+    cfg = Configuration(TRAINER_CONFIG, workspace, load_model=load_model, root=root,
+                        overrides={"epoch": 1, "batch_size": TRAINER_BATCH, **(overrides or {})})
+    cfg.data["dataset"].update(TRAINER_DATA)
+    return cfg.get_config()
+
+
+def record_steps(torch, trainer, sync=False):
+    """Wrap the train step `trainer.init_state` makes so that each call's
+    losses land in the returned list (the device tensors; with `sync`, also
+    each step's wall seconds and its state's digest)."""
+    from dualpixelface_tpu_torch import parallel
+
+    record = {"losses": [], "wall_s": [], "digests": []}
+    init_state = trainer.init_state
+
+    def init_and_wrap(steps_per_epoch):
+        state = init_state(steps_per_epoch)
+        record["init"] = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        step = trainer.train_step
+
+        def recorded(state, batch, mark=None):
+            t0 = time.perf_counter()
+            out = step(state, batch, mark)
+            record["losses"].append(out[1])
+            if sync:
+                torch.cuda.synchronize()
+                record["wall_s"].append(time.perf_counter() - t0)
+                record["digests"].append(parallel.state_digest(out[0].model))
+            return out
+
+        trainer.train_step = recorded
+        return state
+
+    trainer.init_state = init_and_wrap
+    return record
+
+
 def trainer_full_width(torch, card):
     """Phase 10: `Trainer.fit` then `test()` of the run config
     TRAINER_CONFIG (f32, Adam, 2 DataLoader workers, pinned memory, as
@@ -981,11 +1054,12 @@ def trainer_full_width(torch, card):
     before `test`, and read just after each. Then a fresh trainer in test
     mode restoring the epoch's checkpoint (`load_model`) must give the same
     metric aggregates to rtol 1e-4, and one more train step is profiled for
-    the kernels' device time. Returns the phase's counts (fit + test)."""
+    the kernels' device time. Returns the phase's counts (fit + test) and
+    phase 11's reference: each step's losses, the state after `fit` and
+    the test tables."""
     import shutil
     import tempfile
 
-    from dualpixelface_tpu_torch.config import Configuration
     from dualpixelface_tpu_torch.data.pipeline import numeric_batch
     from dualpixelface_tpu_torch.data.preprocess import native
     from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -1001,15 +1075,13 @@ def trainer_full_width(torch, card):
         shutil.copytree(ROOT / "configs", tmp / "configs")
 
         def option(overrides=None, load_model=None):
-            cfg = Configuration(TRAINER_CONFIG, "phase10", load_model=load_model, root=tmp,
-                                overrides={"epoch": 1, "batch_size": TRAINER_BATCH, **(overrides or {})})
-            cfg.data["dataset"].update(TRAINER_DATA)
-            return cfg.get_config()
+            return trainer_option(tmp, "phase10", overrides, load_model)
 
         opt = option()
         if resolve_policy(opt) != torch.float32 or opt.optim != "adam":
             fail(f"phase 10: the run config gives {resolve_policy(opt)}, {opt.optim}; f32 and adam are committed")
         trainer = Trainer(opt)  # the card: CUDA is the default
+        steps_record = record_steps(torch, trainer)
         pipes = []
         make_pipe = trainer._pipeline
 
@@ -1027,6 +1099,9 @@ def trainer_full_width(torch, card):
         fit_s = time.perf_counter() - t0
         fit_launches = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
+        reference = {"losses": [{k: float(v) for k, v in d.items()} for d in steps_record["losses"]],
+                     "init": steps_record["init"],
+                     "state": {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}}
         reset_launch_counts()
         t0 = time.perf_counter()
         agg = trainer.test()
@@ -1071,7 +1146,8 @@ def trainer_full_width(torch, card):
             flush=True)
         del trainer
         torch.cuda.empty_cache()
-        return {k: fit_launches[k] + test_launches[k] for k in fit_launches}
+        reference.update(agg=agg, fit_s=fit_s, peak_memory_gb=peak)
+        return {k: fit_launches[k] + test_launches[k] for k in fit_launches}, reference
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1082,9 +1158,13 @@ def cli_subprocess(card):
     a subprocess under a timeout: smoke.json is TRAINER_CONFIG with epoch 1
     (8 steps of batch 8 on its own 384x288 data, 288x192 crops, then a test
     pass). Checks rc 0, the train and test records and the checkpoint, then
-    removes the workspace it made."""
+    removes the workspace it made. Where gcd(batch, cards) > 1 the CLI runs
+    that many ranks through `parallel.spawn`, one a card over nccl, and must
+    print so."""
     import shutil
     import tempfile
+
+    import torch
 
     ws = ROOT / "workspace" / "stereodpnet_plus" / "chip_smoke"
     if ws.exists():
@@ -1103,13 +1183,18 @@ def cli_subprocess(card):
         cli_s = time.perf_counter() - t0
         if out.returncode != 0:
             fail(f"phase 10b: the CLI exited {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        cards = torch.cuda.device_count()
+        ranks = math.gcd(run["batch_size"], cards)
+        spawned = f"parallel.spawn: {ranks} ranks on cuda ({cards} cards), backend nccl"
+        if ranks > 1 and spawned not in out.stdout:
+            fail(f"phase 10b: on {cards} cards the CLI did not print '{spawned}':\n{out.stdout[-2000:]}")
         records = [json.loads(line) for line in (ws / "output" / "metrics.jsonl").read_text().splitlines()]
         ckpts = sorted(p.name for p in (ws / "checkpoints").iterdir())
         train = records[0] if records else {}
         if [r["mode"] for r in records] != ["train", "test"] or ckpts != ["checkpoint_00.pt"] or \
                 train.get("steps") != 8.0 or not math.isfinite(train.get("final_loss", math.nan)):
             fail(f"phase 10b: records {records}, checkpoints {ckpts}")
-        print(json.dumps({"cli_smoke": {"config": "smoke.json", "rc": out.returncode, "cli_s": cli_s,
+        print(json.dumps({"cli_smoke": {"config": "smoke.json", "rc": out.returncode, "cli_s": cli_s, "ranks": ranks,
                                         "train_record": train, "test_record": records[1], "card": card}}),
               flush=True)
     finally:
@@ -1118,6 +1203,159 @@ def cli_subprocess(card):
         for d in reversed(made):
             if d.exists() and not any(d.iterdir()):
                 d.rmdir()
+
+
+# phase 11: phase 10's run (trainer_option: global batch 4, 768x576, f32,
+# Adam, 2 train steps, 2 eval batches, the second padded) on DDP_RANKS
+# ranks, 2 rows a rank, held to phase 10's one process. The two runs do the
+# same f32 arithmetic in another order: K2's gx by f32 atomics (which alone
+# differ from run to run), BatchNorm's moments as per-rank sums joined by
+# the all-reduce, the masked means' global counts, the gradient as per-rank
+# backwards summed by the all-reduce, and cuDNN's convolutions at batch 2
+# instead of 4. At the seeded init a kink's input can lie within that
+# rounding of its switch point, and Adam's first steps move each weight by
+# about lr * sign(g), so a flipped sign moves a weight by up to 2 lr. The
+# four numbers (`ddp_differences`): each step's global losses, relative;
+# the parameters' moves from the init (without the deform convs' biases,
+# whose exact gradient is zero) against the update's norm; each BatchNorm
+# buffer against its norm; each test-table entry against max(1, |phase
+# 10's|). `python3 -m dualpixelface_tpu_torch.tools.ddp_tolerance` read
+# them on an H100 80GB HBM3 at 700 W. Noise (phase 10 against itself, phase
+# 11 against phase 10 and against itself, 8 readings with chip_smoke's):
+# loss <= 3.8e-5, update <= 5.3e-2, buffer <= 3.4e-4, table <= 3.2e-3.
+# Faults planted in the ranks: per-rank BatchNorm statistics 5.5e-2, 0.82,
+# 0.38, 0.24; BatchNorm moments without their gradient's all-reduce 1.2e-2,
+# 0.67, 0.16, 4.4e-2; a per-rank masked mean 4.6e-4, 5.8e-2, 4.8e-4,
+# 9.9e-4, caught by the loss alone (SyntheticDP's masks hold similar counts,
+# so its gradient moves within the noise; tests/test_torch_parallel.py's
+# 60% / 100% masks catch that). Each bound sits between the noise and the
+# smallest fault that clears it, about the geometric mean. The ranks must
+# agree bit for bit after every step; tests/test_torch_parallel.py holds the
+# same reductions to 1e-5 at a well-conditioned point on the CPU.
+DDP_RANKS = 2
+DDP_TOL = {"loss": 1.5e-4, "update": 0.2, "buffer": 1e-2, "table": 1e-2}
+ZERO_GRAD = ("normal_estimator.deform_conv1.bias", "normal_estimator.deform_conv2.bias")
+
+
+def ddp_rank(root: str) -> dict:
+    """One rank of phase 11, in a process `parallel.spawn` started: the
+    Trainer on phase 10's cut under `root`, this rank's 2 rows of each
+    global batch; the launch counts set to 0 just before `fit` and before
+    `test`, and read just after each; each step's losses, wall seconds and
+    state digest; the peak memory; rank 0's state after `fit`."""
+    import torch
+
+    from dualpixelface_tpu_torch import parallel
+    from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualpixelface_tpu_torch.train.trainer import Trainer
+
+    # phase 10 ran where phase 3 had turned TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = parallel.world()
+    trainer = Trainer(trainer_option(Path(root), "phase11"))
+    record = record_steps(torch, trainer, sync=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()} if world.main else None
+    reset_launch_counts()
+    agg = trainer.test()
+    test_launches = launch_counts()
+    return {"rank": world.rank, "backend": world.backend, "device": str(trainer.device),
+            "launches_fit": fit_launches, "launches_test": test_launches, "peak_memory_gb": peak,
+            "fit_s": fit_s, "step_wall_s": record["wall_s"], "digests": record["digests"],
+            "losses": [{k: float(v) for k, v in d.items()} for d in record["losses"]], "state": state, "agg": agg}
+
+
+def ddp_differences(reference: dict, rank0: dict) -> dict:
+    """Phase 11's rank 0 against phase 10, in DDP_TOL's terms: the largest
+    relative loss difference over the steps, the parameters' update
+    difference over the update's norm (and the worst parameter's, for the
+    record), the worst BatchNorm buffer's difference over its norm (a
+    differing step count counts 1), the worst test-table entry's."""
+    init, one, two = reference["init"], reference["state"], rank0["state"]
+    losses = [abs(b[k] - a[k]) / abs(a[k]) for a, b in zip(reference["losses"], rank0["losses"]) for k in a]
+    num = den = 0.0
+    each, buffer = {}, {}
+    for name, v in one.items():
+        if name.endswith(("running_mean", "running_var")):
+            buffer[name] = float((two[name] - v).norm() / v.norm())
+        elif name.endswith("num_batches_tracked"):
+            buffer[name] = float(two[name] != v)
+        elif name not in ZERO_GRAD:
+            d1, d2 = v - init[name], two[name] - init[name]
+            num += float((d2 - d1).square().sum())
+            den += float(d1.square().sum())
+            each[name] = float((d2 - d1).norm() / d1.norm())
+    table = max(abs(rank0["agg"][m][k] - v) / max(1.0, abs(v)) for m, d in reference["agg"].items() for k, v in d.items())
+    worst, worst_buffer = max(each, key=each.get), max(buffer, key=buffer.get)
+    return {"loss": max(losses) if len(losses) == len(reference["losses"]) * 3 else math.inf,
+            "update": (num / den) ** 0.5, "buffer": buffer[worst_buffer], "table": table,
+            "worst_update": [worst, each[worst]], "worst_buffer": [worst_buffer, buffer[worst_buffer]]}
+
+
+def ddp_phase(torch, card, reference):
+    """Phase 11: phase 10's run on DDP_RANKS ranks through `parallel.spawn`
+    and the Trainer: on the one card over gloo, and, where the machine has
+    two cards or more, on two cards over nccl. Each rank must launch K1-K5
+    as phase 10 does (the same path at half the batch), every rank must
+    hold the same state after each step, rank 0 alone writes the records,
+    the log and the checkpoint, and rank 0's losses, state and tables are
+    held to phase 10's at DDP_TOL. Returns each run's per-rank summaries."""
+    import shutil
+    import tempfile
+
+    from dualpixelface_tpu_torch import parallel
+
+    steps = TRAINER_DATA["train_samples"] // TRAINER_BATCH
+    batches = -(-TRAINER_DATA["test_samples"] // TRAINER_BATCH)
+    runs = {}
+    for cards in (1, 2):
+        if torch.cuda.device_count() < cards:
+            continue
+        tmp = Path(tempfile.mkdtemp(prefix="phase11_", dir=ROOT / "build"))
+        try:
+            shutil.copytree(ROOT / "configs", tmp / "configs")
+            t0 = time.perf_counter()
+            ranks = parallel.spawn(ddp_rank, DDP_RANKS, "cuda", args=(str(tmp),), cards=cards)
+            wall = time.perf_counter() - t0
+            ws = tmp / "workspace" / "stereodpnet_plus" / "phase11"
+            records = [json.loads(line)["mode"] for line in (ws / "output" / "metrics.jsonl").read_text().splitlines()]
+            logs = (ws / "output" / "log_text.txt").read_text().splitlines()
+            ckpts = sorted(p.name for p in (ws / "checkpoints").iterdir())
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        label = f"{ranks[0]['backend']}, {cards} card(s)"
+        for r in ranks:
+            print(json.dumps({"ddp_rank": {k: v for k, v in r.items() if k not in ("state", "agg", "digests")},
+                              "run": label, "card": card}), flush=True)
+            for kind, per, n in (("fit", TRAIN_STEP_LAUNCHES, steps), ("test", EVAL_LAUNCHES, batches)):
+                got = r[f"launches_{kind}"]
+                want = {**dict.fromkeys(got, 0), **{k: c * n for k, c in per.items()}}
+                if got != want:
+                    fail(f"phase 11 ({label}): rank {r['rank']} {kind} launches {got} != {want}")
+        if not all(r["digests"] == ranks[0]["digests"] and len(r["digests"]) == steps for r in ranks):
+            fail(f"phase 11 ({label}): the ranks' states differ after some step: {[r['digests'] for r in ranks]}")
+        if records != ["train", "test"] or len(logs) != 1 or ckpts != ["checkpoint_00.pt"]:
+            fail(f"phase 11 ({label}): rank 0 alone must write: records {records}, {len(logs)} log lines, "
+                 f"checkpoints {ckpts}")
+        if not all(r["agg"] == ranks[0]["agg"] for r in ranks):
+            fail(f"phase 11 ({label}): the ranks return different test tables")
+        diff = ddp_differences(reference, ranks[0])
+        print(json.dumps({"ddp_vs_one_process": diff, "tolerances": DDP_TOL, "run": label,
+                          "spawn_wall_s": wall, "card": card}), flush=True)
+        if not all(diff[k] <= tol for k, tol in DDP_TOL.items()) or set(ranks[0]["agg"]) != set(reference["agg"]):
+            fail(f"phase 11 ({label}): the {DDP_RANKS}-rank run differs from phase 10's beyond DDP_TOL: {diff}")
+        runs[label] = [{k: r[k] for k in ("backend", "device", "peak_memory_gb", "step_wall_s")}
+                       | {"launches": {k: r["launches_fit"][k] + r["launches_test"][k] for k in r["launches_fit"]}}
+                       for r in ranks]
+    return runs
 
 
 def main() -> int:
@@ -1169,8 +1407,10 @@ def main() -> int:
     launches_bench = phase("7b", train_full_width, torch, sd, card, "bench")
     phase("8", train_against_cpu, torch)
     tools = phase("9", tools_phase, torch)
-    launches_trainer = phase("10", trainer_full_width, torch, card)
+    launches_trainer, reference = phase("10", trainer_full_width, torch, card)
     phase("10b", cli_subprocess, card)
+    ddp = phase("11", ddp_phase, torch, card, reference)
+    launches_ddp = next(iter(ddp.values()))
     print(json.dumps({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0}), flush=True)
     k5, t1 = timing["K5"], tools["T1"]
     chain_ms = sum(r["chain_ms"] for r in t1["runs"])
@@ -1192,6 +1432,7 @@ def main() -> int:
             "source": f"dualpixelface_tpu_torch/csrc/{SOURCES[k]}", "replaces": TPU_SITES[k],
             "launches": launches[k], "launches_serving": serving[k], "launches_serving_exact": serving_exact[k],
             "launches_train_bench": launches_bench[k], "launches_trainer": launches_trainer[k],
+            "launches_ddp": [r["launches"][k] for r in launches_ddp],
             "max_abs_err": err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],
@@ -1200,7 +1441,8 @@ def main() -> int:
         kernels.append({
             "name": f"{k} {NAMES[k]}", "route": "cuda",
             "source": f"dualpixelface_tpu_torch/csrc/{SOURCES[k]}", "replaces": TPU_SITES[k],
-            "launches": row["launches"], "launches_trainer": launches_trainer[k], "max_abs_err": row["err"],
+            "launches": row["launches"], "launches_trainer": launches_trainer[k],
+            "launches_ddp": [r["launches"][k] for r in launches_ddp], "max_abs_err": row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": "operations" if 2 * row["bound_ops_ms"] >= row["bound_ms"] else "bytes",

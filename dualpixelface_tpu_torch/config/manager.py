@@ -11,8 +11,12 @@ recursive attribute-access `Config`. The workspace is
 root, with `output/log_text.txt`.
 
 The run keys mean here what they mean in the JAX package: `accelerator`
-'jit', 'dp' and 'ddp' all run one process on one card (the JAX trainer's
-gcd(batch, devices) rule on one device), and `precision` is 32 or 'bf16'.
+'jit', 'dp' and 'ddp' all train data-parallel over the cards that divide
+the batch (the JAX trainer's gcd(batch, devices) rule; the CLI starts one
+rank per card, `parallel.world_for`), `sync_batch` is true (BatchNorm's
+statistics are the global batch's once several ranks train), and
+`precision` is 32 or 'bf16'. With several ranks, rank 0 alone makes the
+workspace and writes `log_text.txt`; every rank gets its paths.
 A run config whose model the port does not have raises, naming it.
 
 `load_config` is the older merge-only entry point of the profilers, the
@@ -25,6 +29,7 @@ import copy
 import json
 from pathlib import Path
 
+from dualpixelface_tpu_torch import parallel
 from dualpixelface_tpu_torch.utils.file_manager import error_handler, makedir_custom, setup_logger
 
 PACKAGE_ROOT = Path(__file__).resolve().parent.parent
@@ -106,7 +111,8 @@ class Configuration:
         # so overriding model_name etc. picks up the right sub-configs
         if overrides:
             self.data.update(overrides)
-        # kept for config parity with the JAX package (ref config_manager.py:57)
+        # as the JAX package sets it (ref config_manager.py:57): BatchNorm
+        # over the global batch when several ranks train (ops/blocks)
         self.data["sync_batch"] = True
 
         # the model layer is checked before the workspace is made, so a
@@ -120,14 +126,16 @@ class Configuration:
             )
 
         if make_workspace:
-            root_path = makedir_custom(self.root / "workspace")
-            model_path = makedir_custom(root_path / model_name)
-            workspace_path = makedir_custom(model_path / self.workspace)
-            logger_path = makedir_custom(workspace_path / "log")
-            output_path = makedir_custom(workspace_path / "output")
-            ckpt_path = makedir_custom(workspace_path / "checkpoints")
-            logger_text = setup_logger("dualpixelface_tpu_torch.train_log", str(output_path / "log_text.txt"))
-            logger_text.info("config=%s workspace=%s", self.config_path, self.workspace)
+            model_path = self.root / "workspace" / model_name
+            workspace_path = model_path / self.workspace
+            logger_path = workspace_path / "log"
+            output_path = workspace_path / "output"
+            ckpt_path = workspace_path / "checkpoints"
+            if parallel.world().main:
+                for path in (logger_path, output_path, ckpt_path):
+                    makedir_custom(path)
+                logger_text = setup_logger("dualpixelface_tpu_torch.train_log", str(output_path / "log_text.txt"))
+                logger_text.info("config=%s workspace=%s", self.config_path, self.workspace)
             self.data.update(
                 {
                     "model_path": str(model_path),

@@ -12,6 +12,13 @@ number of workers; `data_pipeline: grain` maps to the same DataLoader:
     pairs, so a worker holds no epoch state;
   * training drops the last partial batch; otherwise the last batch is
     padded with its last sample, and `_valid` marks the real rows;
+  * with W ranks (`rank`, `world_size`), rank r takes rows
+    [r*B/W, (r+1)*B/W) of each global batch (padded rows and `_valid`
+    included): every rank takes the one-process step count, and the rows
+    in rank order are the one-process batch. JAX's `DataPipeline` shards
+    by stride instead (`shard_index::shard_count`), whose shards differ in
+    length when W does not divide n, and whose batches are not the
+    one-process ones. B must be a multiple of W;
   * numeric fields are stacked into CPU tensors (`torch.from_numpy`, so
     `pin_memory` can pin them); `groupname` and `pathname` stay lists of
     strings, which `numeric_batch` drops.
@@ -31,8 +38,8 @@ _STRING_KEYS = ("groupname", "pathname")
 
 
 def collate(samples: list[dict]) -> dict:
-    """Stack a list of sample dicts into one batch dict of CPU tensors,
-    string fields as lists."""
+    """Stack a list of sample dicts into one batch dict of CPU tensors
+    (`_valid` a bool tensor), string fields as lists."""
     batch: dict = {}
     for key in samples[0]:
         vals = [s[key] for s in samples]
@@ -48,43 +55,48 @@ def numeric_batch(batch: dict) -> dict:
     return {k: v for k, v in batch.items() if k not in _STRING_KEYS}
 
 
-class PadCollate:
-    """`collate` of a batch padded to `batch_size` rows with its last
-    sample, with `_valid` marking the real rows."""
-
-    def __init__(self, batch_size: int):
-        self.batch_size = batch_size
-
-    def __call__(self, samples: list[dict]) -> dict:
-        pad = self.batch_size - len(samples)
-        batch = collate(samples + [samples[-1]] * pad)
-        batch["_valid"] = torch.arange(self.batch_size) < len(samples)
-        return batch
-
-
 class EpochSamples(Dataset):
-    """Sample `index` of `dataset` for the key (epoch, index), drawing its
-    augmentation from `default_rng((seed, epoch, index))`."""
+    """Sample `index` of `dataset` for the key (epoch, index, valid),
+    drawing its augmentation from `default_rng((seed, epoch, index))`, with
+    `_valid` set to `valid` (False for a padding row)."""
 
     def __init__(self, dataset, seed: int):
         self.dataset = dataset
         self.seed = seed
 
-    def __getitem__(self, key):
-        epoch, index = key
+    def _load(self, epoch, index):
         rng = np.random.default_rng((self.seed, int(epoch), int(index)))
         return self.dataset.__getitem__(int(index), rng=rng)
 
+    def __getitem__(self, key):
+        epoch, index, valid = key
+        return {**self._load(epoch, index), "_valid": np.bool_(valid)}
+
+    def __getitems__(self, keys):
+        """A batch's samples, each distinct one loaded once (padding rows
+        repeat the last sample)."""
+        loaded = {}
+        for epoch, index, _ in keys:
+            if (epoch, index) not in loaded:
+                loaded[(epoch, index)] = self._load(epoch, index)
+        return [{**loaded[(epoch, index)], "_valid": np.bool_(valid)} for epoch, index, valid in keys]
+
 
 class EpochBatches(Sampler):
-    """Lists of (epoch, index) keys, one per batch, in the epoch's order."""
+    """Lists of (epoch, index, valid) keys, one per batch, in the epoch's
+    order: this rank's rows of each global batch, a short last batch
+    padded with its last sample."""
 
-    def __init__(self, n: int, batch_size: int, shuffle: bool, seed: int, drop_last: bool):
+    def __init__(self, n: int, batch_size: int, shuffle: bool, seed: int, drop_last: bool,
+                 rank: int = 0, world_size: int = 1):
+        if batch_size % world_size:
+            raise ValueError(f"batch_size {batch_size} is no multiple of the {world_size} ranks")
         self.n = n
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.rows = slice(rank * batch_size // world_size, (rank + 1) * batch_size // world_size)
         self.epoch = 0
 
     def order(self) -> np.ndarray:
@@ -100,7 +112,10 @@ class EpochBatches(Sampler):
     def __iter__(self):
         order = self.order()
         for b in range(len(self)):
-            yield [(self.epoch, int(i)) for i in order[b * self.batch_size : (b + 1) * self.batch_size]]
+            real = [int(i) for i in order[b * self.batch_size : (b + 1) * self.batch_size]]
+            keys = [(self.epoch, i, True) for i in real]
+            keys += [(self.epoch, real[-1], False)] * (self.batch_size - len(real))
+            yield keys[self.rows]
 
 
 class DataPipeline:
@@ -108,12 +123,12 @@ class DataPipeline:
     iterate for epoch e's batches."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 1, num_workers: int = 0,
-                 drop_last: bool = False, pin_memory: bool = False):
-        self.sampler = EpochBatches(len(dataset), batch_size, shuffle, seed, drop_last)
+                 drop_last: bool = False, pin_memory: bool = False, rank: int = 0, world_size: int = 1):
+        self.sampler = EpochBatches(len(dataset), batch_size, shuffle, seed, drop_last, rank, world_size)
         self.loader = DataLoader(
             EpochSamples(dataset, seed),
             batch_sampler=self.sampler,
-            collate_fn=PadCollate(batch_size),
+            collate_fn=collate,
             num_workers=num_workers,
             pin_memory=pin_memory,
             multiprocessing_context="spawn" if num_workers > 0 else None,
@@ -130,9 +145,11 @@ class DataPipeline:
         return iter(self.loader)
 
 
-def make_pipeline(option, dataset, training: bool, seed: int = 1, pin_memory: bool = False) -> DataPipeline:
-    """The pipeline of a run config: `batch_size`, `workers`, shuffled and
-    dropping the last partial batch when `training`. `pin_memory` is the
+def make_pipeline(option, dataset, training: bool, seed: int = 1, pin_memory: bool = False,
+                  rank: int = 0, world_size: int = 1) -> DataPipeline:
+    """The pipeline of a run config: `batch_size` (the global batch),
+    `workers`, shuffled and dropping the last partial batch when
+    `training`, this rank's rows of each batch. `pin_memory` is the
     caller's (the run key `pin_memory` where the batches go to the card)."""
     return DataPipeline(
         dataset,
@@ -142,4 +159,6 @@ def make_pipeline(option, dataset, training: bool, seed: int = 1, pin_memory: bo
         num_workers=int(option.workers),
         drop_last=training,
         pin_memory=pin_memory,
+        rank=rank,
+        world_size=world_size,
     )

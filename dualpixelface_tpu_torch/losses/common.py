@@ -1,17 +1,28 @@
 """Shared loss helpers (counterpart of `dualpixelface_tpu/losses/common.py`):
-masked reductions without boolean indexing, and ground-truth preparation."""
+masked reductions without boolean indexing (over the global batch when
+several ranks train), and ground-truth preparation."""
 from __future__ import annotations
 
 import torch
 
+from dualpixelface_tpu_torch import parallel
 from dualpixelface_tpu_torch.ops import geometry
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor | None, eps: float = 1e-8) -> torch.Tensor:
-    """Mean over the elements where `mask` is set (all without a mask)."""
+    """Mean over the elements where `mask` is set (all without a mask), over
+    the global batch. With W ranks (`parallel`), this rank's share is
+    W * sum_r(x * m) / sum_all(m), the count summed over the ranks without a
+    gradient: the mean over the ranks of the shares is the global masked
+    mean, and so is the gradient that `parallel.all_reduce_grads` averages.
+    The ranks' shards are of one shape, so without a mask the local mean is
+    the share."""
     if mask is None:
         return x.mean()
     m = mask.to(x.dtype)
+    size = parallel.world().size
+    if size > 1:
+        return size * (x * m).sum() / torch.clamp_min(parallel.global_count(m.sum()), eps)
     return (x * m).sum() / torch.clamp_min(m.sum(), eps)
 
 

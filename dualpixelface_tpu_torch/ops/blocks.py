@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from dualpixelface_tpu_torch import parallel
+
 
 class _FlaxTrainBatchNorm:
     """Train mode as Flax's `nn.BatchNorm(momentum=0.9)`: statistics in f32
@@ -23,7 +25,15 @@ class _FlaxTrainBatchNorm:
     updates them, so a module called twice in one forward (the ASM mask
     head) updates twice, as the Flax module does. torch's own BatchNorm
     updates with the unbiased variance. Eval mode is torch's (running
-    statistics), unchanged. State-dict names are torch's."""
+    statistics), unchanged. State-dict names are torch's.
+
+    With a process group of several ranks (`parallel`), the statistics are
+    the global batch's, as JAX's one program over the mesh takes them:
+    sum(x), sum(x^2) and the count, in f32, summed over the ranks by the
+    autograd all-reduce (so the gradient through the global mean and
+    variance reaches every rank's input), then the mean and the biased
+    variance. Every rank then updates its running statistics alike. One
+    process keeps its own means, so its numbers stay as they were."""
 
     def forward(self, x):
         if not self.training:
@@ -32,8 +42,14 @@ class _FlaxTrainBatchNorm:
         red = (0,) + tuple(range(2, x.ndim))
         shape = (1, -1) + (1,) * (x.ndim - 2)
         xf = x.float()
-        mean = xf.mean(dim=red)
-        var = torch.clamp_min(xf.square().mean(dim=red) - mean.square(), 0.0)
+        if parallel.world().size > 1:
+            c = x.shape[1]
+            count = xf.new_full((1,), xf.numel() // c)
+            moments = parallel.all_reduce_sum(torch.cat([xf.sum(dim=red), xf.square().sum(dim=red), count]))
+            mean, meansq = moments[:c] / moments[-1], moments[c:2 * c] / moments[-1]
+        else:
+            mean, meansq = xf.mean(dim=red), xf.square().mean(dim=red)
+        var = torch.clamp_min(meansq - mean.square(), 0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.detach().to(self.running_mean.dtype), alpha=m)

@@ -9,6 +9,7 @@ parameters it indexes, the count of steps taken and the epoch. The `.pt`
 suffix keeps it apart from the JAX package's Orbax directories
 (`checkpoint_<epoch:02d>/`) in a workspace both packages share.
 
+With several ranks, rank 0 writes each file and every rank restores it.
 `restore_checkpoint(path, state, strict)` loads one into a train state:
 strict, every entry must be there with its shape; not strict, any entry
 that is missing or whose shape differs keeps its current value, as the JAX
@@ -22,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from dualpixelface_tpu_torch import parallel
 from dualpixelface_tpu_torch.utils.file_manager import error_handler
 
 SUFFIX = ".pt"
@@ -44,9 +46,14 @@ def _param_names(model) -> list[str]:
 
 
 def save_checkpoint(ckpt_dir: str, state, epoch: int) -> str:
+    """Write `checkpoint_<epoch>.pt`: rank 0 alone writes (every rank holds
+    the same state), then all ranks meet at a barrier, so each finds the
+    file afterwards."""
     path = (Path(ckpt_dir) / checkpoint_name(epoch)).absolute()
-    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                "param_names": _param_names(state.model), "step": int(state.step), "epoch": int(epoch)}, path)
+    if parallel.world().main:
+        torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                    "param_names": _param_names(state.model), "step": int(state.step), "epoch": int(epoch)}, path)
+    parallel.barrier()
     return str(path)
 
 

@@ -8,7 +8,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from dualpixelface_tpu_torch import resolve_device
+from dualpixelface_tpu_torch import parallel, resolve_device
 from dualpixelface_tpu_torch.models import build_model
 from dualpixelface_tpu_torch.train.optim import optimizer_selector
 from dualpixelface_tpu_torch.weights import load_state_dict
@@ -33,14 +33,18 @@ class TrainState:
 
 def create_train_state(option, steps_per_epoch: int, state_dict=None, device="cuda", seed: int = 0) -> TrainState:
     """The model for `option` in train mode and f32 on `device` (CUDA unless
-    the caller asks for the CPU; without a card it raises), with the seeded
-    init or `state_dict` (reference-named, e.g. `weights.state_dict_from_jax`),
-    and the optimizer and schedule of `option.optim` / `option.scheduler`."""
+    the caller asks for the CPU; without a card it raises; this rank's card
+    when several ranks train), with the seeded init or `state_dict`
+    (reference-named, e.g. `weights.state_dict_from_jax`), and the
+    optimizer and schedule of `option.optim` / `option.scheduler`. Every
+    rank must start from the same weights: a digest all-reduce checks it
+    (nothing is broadcast over a difference)."""
     dev = resolve_device(device)
     model = build_model(option, device="cpu", seed=seed)
     if state_dict is not None:
         load_state_dict(model, state_dict)
     model = model.to(dev).train()
+    parallel.check_replicated(model, "the initial weights")
     optimizer, schedule = optimizer_selector(option, list(model.parameters()), steps_per_epoch)
     return TrainState(model=model, optimizer=optimizer, schedule=schedule)
 

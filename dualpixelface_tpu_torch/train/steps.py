@@ -16,6 +16,13 @@ the master, when the call returns; `named_parameters()` lists it once.
 The model runs in train mode (three regression heads, batch statistics).
 A step's forward, loss, backward and update run one after another on the
 model's device.
+
+With several ranks (`parallel`), each runs the step on its rows of the
+global batch; BatchNorm and the losses reduce over the global batch, and
+after the backward, before the update, `parallel.all_reduce_grads` makes
+every rank's gradient the mean over the ranks, where XLA inserts the
+gradient all-reduce in JAX: every rank then takes the one-process update
+of the global batch, and the losses returned are the global ones.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from dualpixelface_tpu_torch import parallel
 from dualpixelface_tpu_torch.ops.precision import cast_floating
 
 
@@ -56,10 +64,13 @@ def make_train_step(model, loss_bank, compute_dtype=torch.float32):
         mark("backward")
         state.optimizer.zero_grad(set_to_none=True)
         losses["final_loss"].backward()
+        parallel.all_reduce_grads(model.parameters(), parallel.world())
         mark("update")
         state.apply_gradients()
         mark("end")
-        return state, {k: v.detach() for k, v in losses.items() if k.endswith("loss")}
+        names = [k for k in losses if k.endswith("loss")]
+        reported = parallel.global_mean(torch.stack([losses[k].detach() for k in names]))
+        return state, dict(zip(names, reported.unbind()))
 
     return train_step
 

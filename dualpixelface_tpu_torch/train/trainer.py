@@ -6,9 +6,14 @@ PyTorch-Lightning's Trainer, ref main.py:43-62).
     trainer.fit()    # epochs of train steps, a checkpoint each epoch
     trainer.test()   # eval forwards, the metric bank, its tables
 
-One process on one card (the run key `accelerator` 'jit', 'dp' or 'ddp'
-alike), or the CPU when `device="cpu"` is asked for; without a card the
-CUDA default raises. The batches come from `data/pipeline.make_pipeline`
+One process on one card, or the CPU when `device="cpu"` is asked for;
+without a card the CUDA default raises. In a process group of W ranks
+(`parallel.initialize_multiprocess`; the CLI starts one rank per card, the
+run key `accelerator` 'jit', 'dp' or 'ddp' alike, as in JAX) each rank
+trains on its rows of every global batch, on its own card, and takes the
+one-process update (`train/steps`); rank 0 alone writes the records and
+the checkpoints, and `test()` measures each global batch on rank 0, so the
+tables are the one-process ones. The batches come from `data/pipeline.make_pipeline`
 (a torch DataLoader, pinned memory per the run key `pin_memory` on the
 card; one per mode, whose workers live as long as the trainer) and go to
 the device without a host sync; the train steps' losses
@@ -26,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-from dualpixelface_tpu_torch import resolve_device
+from dualpixelface_tpu_torch import parallel, resolve_device
 from dualpixelface_tpu_torch.data.loader_selector import loader_selector
 from dualpixelface_tpu_torch.data.pipeline import make_pipeline, numeric_batch
 from dualpixelface_tpu_torch.losses import loss_selector
@@ -46,6 +51,7 @@ class Trainer:
         replaces the seeded init of the weights; a checkpoint named by the
         run key `load_model` is restored over either."""
         self.opt = option
+        self.world = parallel.world()
         self.device = resolve_device(device)
         self.state_dict = state_dict
         self.loss_bank = loss_selector(option)
@@ -60,7 +66,7 @@ class Trainer:
             self._log_file = Path(option.output_path) / "metrics.jsonl"
         # TensorBoard channel (ref main.py:31-33 TensorBoardLogger) where
         # tensorboardX is available; JSONL + stdout remain the primary sinks
-        if getattr(option, "logger_path", None):
+        if getattr(option, "logger_path", None) and self.world.main:
             try:
                 from tensorboardX import SummaryWriter
 
@@ -77,7 +83,8 @@ class Trainer:
             dataset = loader_selector(self.opt, training)
             pin = bool(self.opt.get("pin_memory", False)) and self.device.type == "cuda"
             # seed=1: seed_everything(1) parity (ref main.py:25)
-            self._pipes[training] = make_pipeline(self.opt, dataset, training, seed=1, pin_memory=pin)
+            self._pipes[training] = make_pipeline(self.opt, dataset, training, seed=1, pin_memory=pin,
+                                                  rank=self.world.rank, world_size=self.world.size)
         return self._pipes[training]
 
     def _to_device(self, batch: dict) -> dict:
@@ -94,9 +101,13 @@ class Trainer:
         if self.opt.get("load_model"):
             strict = bool(getattr(self.opt, "load_strict", True))
             restore_checkpoint(self.opt.load_model, self.state, strict)
+            parallel.check_replicated(self.state.model, "the restored weights")
         return self.state
 
     def _log(self, record: dict):
+        """One record to stdout, metrics.jsonl and TensorBoard, by rank 0."""
+        if not self.world.main:
+            return
         record = {k: (float(v) if hasattr(v, "item") or isinstance(v, (int, float)) else v)
                   for k, v in record.items()}
         print(json.dumps(record), flush=True)
@@ -139,6 +150,7 @@ class Trainer:
         self.init_state(len(pipe))
         if resume_path is not None:
             restore_checkpoint(resume_path, self.state, strict=True)
+            parallel.check_replicated(self.state.model, "the resumed weights")
         for epoch in range(start_epoch, epochs):
             pipe.set_epoch(epoch)
             t0 = time.time()
@@ -178,9 +190,13 @@ class Trainer:
             self.init_state(steps_per_epoch=1)
         save_figs = self.opt.get("mode") == "demo" and getattr(self.opt, "output_path", None)
         for step_idx, batch in enumerate(pipe):
-            batch = apply_group_swap(batch, training=False)
+            batch = self._group_swap(batch)
             valid = batch.pop("_valid")
             results = self.eval_step(self.state, self._to_device(numeric_batch(batch)))
+            if self.world.size > 1:
+                results, batch, valid = self._gather(results, batch, valid)
+                if not self.world.main:
+                    continue
             nvalid = int(valid.sum())
             results = {k: v[:nvalid] if torch.is_tensor(v) else v for k, v in results.items()}
             # the metric packs take the host batch: the CPU tensors' numpy
@@ -192,7 +208,37 @@ class Trainer:
 
                 host_results = tensor2numpy({k: v for k, v in results.items() if v is not None})
                 save_result_fig_depth(self.opt, host_results, host_batch, 0, step_idx, mode="DEMO")
-        self.metric_bank.viewer()
-        agg = self.metric_bank.aggregate()
+        if self.world.main:
+            self.metric_bank.viewer()
+        agg = parallel.broadcast_from_main(self.metric_bank.aggregate())
         self._log({"mode": "test", **{f"{m}/{k}": v for m, d in agg.items() for k, v in d.items()}})
         return agg
+
+    def _group_swap(self, batch: dict) -> dict:
+        """`apply_group_swap`, which decides by a batch's first row: with
+        several ranks, by the global batch's first row (rank 0's)."""
+        if self.world.size == 1 or "groupname" not in batch:
+            return apply_group_swap(batch, training=False)
+        lead = parallel.broadcast_from_main(batch["groupname"][:1])
+        return {**apply_group_swap({**batch, "groupname": lead}, training=False), "groupname": batch["groupname"]}
+
+    @staticmethod
+    def _gather(results: dict, batch: dict, valid):
+        """Each rank's eval results (as CPU tensors), host batch and `_valid`
+        gathered to rank 0 and joined in rank order: the global batch, as
+        one process evaluates it. (None, None, None) on the other ranks."""
+        local = ({k: v.cpu() if torch.is_tensor(v) else v for k, v in results.items()}, batch, valid)
+        parts = parallel.gather_to_main(local)
+        if parts is None:
+            return None, None, None
+
+        def join(values):
+            if torch.is_tensor(values[0]):
+                return torch.cat(values)
+            if isinstance(values[0], list):  # the string fields
+                return [x for v in values for x in v]
+            return values[0]
+
+        return ({k: join([p[0][k] for p in parts]) for k in parts[0][0]},
+                {k: join([p[1][k] for p in parts]) for k in parts[0][1]},
+                torch.cat([p[2] for p in parts]))

@@ -154,8 +154,8 @@ def test_offsets_only_on_request(jax_side):
 def test_port_imports_no_jax():
     """Importing every module of the port (the bench script, the metric
     packs, the config manager, the loaders and preprocessing, the trainer,
-    its checkpoints and the CLI among them) leaves jax, flax, the JAX
-    package and `tools/` out of sys.modules."""
+    its checkpoints, the CLI and `parallel/` among them) leaves jax, flax,
+    the JAX package and `tools/` out of sys.modules."""
     code = (
         "import pkgutil, sys, dualpixelface_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
@@ -166,7 +166,8 @@ def test_port_imports_no_jax():
         "    'config.manager', 'data.calibration', 'data.loader_selector', 'data.pipeline', 'data.preprocess.augmentation',\n"
         "    'data.preprocess.native', 'data.preprocess.preprocess', 'data.SyntheticDP.synthesis', 'data.SyntheticDP.loader',\n"
         "    'data.SyntheticDP.fixture', 'data.FaceDP.path_reader', 'data.FaceDP.loader', 'models.base', 'train.checkpoint',\n"
-        "    'train.trainer', 'utils.file_manager', 'utils.profiling', 'utils.visualizer', 'main')}\n"
+        "    'train.trainer', 'utils.file_manager', 'utils.profiling', 'utils.visualizer', 'main', 'parallel',\n"
+        "    'parallel.mesh')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )
