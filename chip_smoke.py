@@ -13,7 +13,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      that spills, or one missing from the log, fails;
   3. check each forward kernel (K1, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
-     in bf16 and f32 (TF32 off); each K1 check names its route, the
+     in bf16 and f32; each K1 check names its route, the
      tensor cores for bf16 and the SIMT kernel for f32; then K1 (both
      apertures) and K5 in f32 at a data-parallel rank's batch 2 (phase 11);
   3b. the same for the backward kernels at the train path's shapes: K2 (all
@@ -110,6 +110,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      global losses, parameters, BatchNorm buffers and test tables are held
      to phase 10's at DDP_TOL (why those bounds: beside it). A rank that
      fails fails the phase.
+  12. the cost-volume zoo (`stereonet`, `psmnet`, `nnet`) at its committed
+     widths through each model's FaceDP run config, f32, seeded weights
+     that keep the activations O(1) (`zoo_state_dict`), per model: 12a 3
+     request batches of 4 at 768x576 through `Predictor(dtype=float32)`
+     (every key's shape, finiteness, the peak memory, a smoke reading of
+     pairs/s); 12b 3 train steps at the run config's batch (stereonet 4,
+     psmnet 2, nnet 2), Adam (finite losses, every weight moved, the peak
+     memory, the step wall); 12a and 12b with the launch counts set to 0
+     just before and read just after, all 0 (the zoo calls the plain
+     soft-argmin, as in JAX); 12c the card's forward against the CPU's at
+     192x192 (psmnet and nnet 256x256: their SPP pools need 2C quarter-
+     resolution pixels) with phase 6's tolerances; then 12d the CLI on the
+     committed `ci_smoke` (stereonet on SyntheticDP, one epoch of batch 4)
+     as phase 10b runs it, in a subprocess, its workspace removed after.
+The kernel checks (phases 3-4c and 9) run with TF32 off for cuDNN and CUDA
+matmuls, scoped: every other phase runs at the port's own setting, which
+an f32 Trainer or Predictor applies (`ops.precision.exact_f32`), and
+phase 10 fails unless its f32 Trainer turned both flags off from torch's
+defaults.
 Each phase prints its wall seconds (`phase_seconds`).
 Then one line sets K5's bf16 time beside cuDNN's faster layout and T1's
 beside the ConvBN3D + ReLU chain, summed over their shapes (a reading,
@@ -118,7 +137,8 @@ The line before the last is the `kernels` JSON with nine rows (launches:
 K1-K5 the train path's run of phase 7, `launches_serving` phase 5's,
 `launches_serving_exact` phase 5b's, `launches_train_bench` phase 7b's,
 `launches_trainer` phase 10's, fit and test, `launches_ddp` phase 11's
-per rank on the one card, fit and test, every row;
+per rank on the one card, fit and test, every row; K1-K5 `launches_zoo`
+phase 12's per model, 12a and 12b;
 T1-T4 the tools' measurements in phase 9, whose T rows sum the runs' times
 and bounds; K1-K5 also carry `device_ms`, phases 4-4c's time on the device
 alone); the last line is {"ok": true, "device": {...}}.
@@ -127,6 +147,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -199,6 +220,11 @@ SOURCES = {"K1": "deform_conv3d.cu", "K2": "deform_conv3d_bwd.cu", "K3": "fused_
 NAMES = {"K1": "deform_conv3d_fused", "K2": "deform_conv3d_bwd", "K3": "fused_softargmin",
          "K4": "fused_softargmin_bwd", "K5": "conv3d_dslice", "T1": "conv3d_dslice_v2", "T2": "lane_gather_sum",
          "T3": "transpose_sum", "T4": "batched_dot"}
+
+
+# torch's defaults for the two TF32 flags (cuDNN's convolutions, CUDA
+# matmuls), as a fresh process has them
+TORCH_TF32_DEFAULTS = (True, False)
 
 
 def fail(msg: str) -> None:
@@ -325,13 +351,30 @@ def kernel_inputs(torch, gen, cin, dtype, shape=ANM_SHAPE, on_bound=False):
     return x, off, w, bias, w_off, b_off
 
 
+@contextlib.contextmanager
+def kernel_checks_in_f32(torch):
+    """TF32 off for cuDNN's convolutions and CUDA matmuls inside the block
+    (the kernel checks of phases 3-4c and 9 hold each kernel against its
+    plain version in IEEE f32), then both flags as they were: the phases
+    after it run at the port's own setting (`ops.precision.exact_f32`,
+    which an f32 Trainer or Predictor applies)."""
+    saved = tf32_flags(torch)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def tf32_flags(torch) -> tuple:
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
 def check_and_time_kernels(torch):
     from dualpixelface_tpu_torch.tools import cuda_ms, cudnn_conv3d_calls, device_ms
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_fused, deform_conv3d_plain, fwd_route
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
     err = {"K1": 0.0, "K5": 0.0}
@@ -886,13 +929,14 @@ def train_against_cpu(torch):
     if every point has them."""
     from dualpixelface_tpu_torch.config import load_config
     from dualpixelface_tpu_torch.losses import loss_selector
-    from dualpixelface_tpu_torch.ops.precision import resolve_policy
+    from dualpixelface_tpu_torch.ops.precision import exact_f32, resolve_policy
     from dualpixelface_tpu_torch.profile_train import smooth_views, train_batch
     from dualpixelface_tpu_torch.train.state import create_train_state
     from dualpixelface_tpu_torch.train.steps import make_train_step
     from dualpixelface_tpu_torch.weights import read_flax_msgpack, state_dict_from_jax
 
     config = load_config("stereodpnet_plus")  # the default run keys: the f32 policy
+    exact_f32()  # the step is built by hand: the f32 setting the Trainer applies to it
     tree = read_flax_msgpack(ROOT / "tests" / "data" / "serving_plateau_192.msgpack")
     sd = state_dict_from_jax(tree["params"], tree["batch_stats"])
 
@@ -1080,7 +1124,14 @@ def trainer_full_width(torch, card):
         opt = option()
         if resolve_policy(opt) != torch.float32 or opt.optim != "adam":
             fail(f"phase 10: the run config gives {resolve_policy(opt)}, {opt.optim}; f32 and adam are committed")
+        # torch's defaults (cuDNN's f32 convolutions in TF32), as a fresh
+        # process has them: the f32 Trainer must turn both flags off itself
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = TORCH_TF32_DEFAULTS
         trainer = Trainer(opt)  # the card: CUDA is the default
+        if tf32_flags(torch) != (False, False):
+            fail(f"phase 10: TF32 flags (cudnn, matmul) read {tf32_flags(torch)} after the f32 Trainer; "
+                 "an f32 run must turn both off")
+        print(f"phase 10: TF32 flags after the f32 Trainer {tf32_flags(torch)}", flush=True)
         steps_record = record_steps(torch, trainer)
         pipes = []
         make_pipe = trainer._pipeline
@@ -1152,57 +1203,67 @@ def trainer_full_width(torch, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def cli_subprocess(card):
-    """Phase 10b: `python -m dualpixelface_tpu_torch.main --config
-    <tmp>/configs/smoke.json --workspace chip_smoke` as a user calls it, in
-    a subprocess under a timeout: smoke.json is TRAINER_CONFIG with epoch 1
-    (8 steps of batch 8 on its own 384x288 data, 288x192 crops, then a test
-    pass). Checks rc 0, the train and test records and the checkpoint, then
-    removes the workspace it made. Where gcd(batch, cards) > 1 the CLI runs
-    that many ranks through `parallel.spawn`, one a card over nccl, and must
-    print so."""
+def run_cli(label: str, config: str, model: str, workspace: str, batch: int, steps: int, card: str) -> dict:
+    """`python -m dualpixelface_tpu_torch.main --config <config> --workspace
+    <workspace>` as a user calls it, in a subprocess under a timeout. Checks
+    rc 0, the train record (`steps` steps, a finite loss) and the test
+    record, the epoch's checkpoint, then removes the workspace it made.
+    Where gcd(batch, cards) > 1 the CLI runs that many ranks through
+    `parallel.spawn`, one a card over nccl, and must print so."""
     import shutil
-    import tempfile
 
     import torch
 
-    ws = ROOT / "workspace" / "stereodpnet_plus" / "chip_smoke"
+    ws = ROOT / "workspace" / model / workspace
     if ws.exists():
-        fail(f"phase 10b: {ws} exists already; it is not this run's to remove")
+        fail(f"phase {label}: {ws} exists already; it is not this run's to remove")
     made = [d for d in (ROOT / "workspace", ws.parent) if not d.exists()]
+    try:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "dualpixelface_tpu_torch.main", "--config", config,
+                              "--workspace", workspace], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"phase {label}: the CLI exited {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        cards = torch.cuda.device_count()
+        ranks = math.gcd(batch, cards)
+        spawned = f"parallel.spawn: {ranks} ranks on cuda ({cards} cards), backend nccl"
+        if ranks > 1 and spawned not in out.stdout:
+            fail(f"phase {label}: on {cards} cards the CLI did not print '{spawned}':\n{out.stdout[-2000:]}")
+        records = [json.loads(line) for line in (ws / "output" / "metrics.jsonl").read_text().splitlines()]
+        ckpts = sorted(p.name for p in (ws / "checkpoints").iterdir())
+        train = records[0] if records else {}
+        if [r["mode"] for r in records] != ["train", "test"] or ckpts != ["checkpoint_00.pt"] or \
+                train.get("steps") != float(steps) or not math.isfinite(train.get("final_loss", math.nan)):
+            fail(f"phase {label}: records {records}, checkpoints {ckpts}")
+        summary = {"config": Path(config).name, "model": model, "rc": out.returncode, "cli_s": cli_s,
+                   "ranks": ranks, "train_record": train, "test_record": records[1], "card": card}
+        print(json.dumps({"cli_smoke": summary}), flush=True)
+        return summary
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+        for d in reversed(made):
+            if d.exists() and not any(d.iterdir()):
+                d.rmdir()
+
+
+def cli_subprocess(card):
+    """Phase 10b: the CLI (`run_cli`) on <tmp>/configs/smoke.json, which is
+    TRAINER_CONFIG with epoch 1 (8 steps of batch 8 on its own 384x288
+    data, 288x192 crops, then a test pass), workspace `chip_smoke`."""
+    import shutil
+    import tempfile
+
     tmp = Path(tempfile.mkdtemp(prefix="phase10b_", dir=ROOT / "build"))
     try:
         run = json.loads((ROOT / "configs" / f"{TRAINER_CONFIG}.json").read_text())
         run["epoch"] = 1
         (tmp / "configs").mkdir()
         (tmp / "configs" / "smoke.json").write_text(json.dumps(run))
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "dualpixelface_tpu_torch.main", "--config",
-                              str(tmp / "configs" / "smoke.json"), "--workspace", "chip_smoke"],
-                             cwd=ROOT, capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        if out.returncode != 0:
-            fail(f"phase 10b: the CLI exited {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
-        cards = torch.cuda.device_count()
-        ranks = math.gcd(run["batch_size"], cards)
-        spawned = f"parallel.spawn: {ranks} ranks on cuda ({cards} cards), backend nccl"
-        if ranks > 1 and spawned not in out.stdout:
-            fail(f"phase 10b: on {cards} cards the CLI did not print '{spawned}':\n{out.stdout[-2000:]}")
-        records = [json.loads(line) for line in (ws / "output" / "metrics.jsonl").read_text().splitlines()]
-        ckpts = sorted(p.name for p in (ws / "checkpoints").iterdir())
-        train = records[0] if records else {}
-        if [r["mode"] for r in records] != ["train", "test"] or ckpts != ["checkpoint_00.pt"] or \
-                train.get("steps") != 8.0 or not math.isfinite(train.get("final_loss", math.nan)):
-            fail(f"phase 10b: records {records}, checkpoints {ckpts}")
-        print(json.dumps({"cli_smoke": {"config": "smoke.json", "rc": out.returncode, "cli_s": cli_s, "ranks": ranks,
-                                        "train_record": train, "test_record": records[1], "card": card}}),
-              flush=True)
+        return run_cli("10b", str(tmp / "configs" / "smoke.json"), "stereodpnet_plus", "chip_smoke",
+                       run["batch_size"], 8, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        shutil.rmtree(ws, ignore_errors=True)
-        for d in reversed(made):
-            if d.exists() and not any(d.iterdir()):
-                d.rmdir()
 
 
 # phase 11: phase 10's run (trainer_option: global batch 4, 768x576, f32,
@@ -1249,9 +1310,6 @@ def ddp_rank(root: str) -> dict:
     from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from dualpixelface_tpu_torch.train.trainer import Trainer
 
-    # phase 10 ran where phase 3 had turned TF32 off
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     world = parallel.world()
     trainer = Trainer(trainer_option(Path(root), "phase11"))
     record = record_steps(torch, trainer, sync=True)
@@ -1358,6 +1416,219 @@ def ddp_phase(torch, card, reference):
     return runs
 
 
+# phase 12: the cost-volume zoo at its committed widths (stereonet k 3;
+# psmnet and nnet inplanes 32, level 8) through each model's FaceDP run
+# config (f32, Adam, flip_lr), at 768x576.
+ZOO = {"stereonet": "train_faceDP_stereonet", "psmnet": "train_faceDP_psmnet", "nnet": "train_faceDP_nnet"}
+ZOO_EVAL_BATCH = 4
+# 12c's size: 192x192 as phase 6 for stereonet; psmnet's and nnet's SPP
+# pools take windows of up to 2C = 64 quarter-resolution pixels, so 256x256
+# is their smallest square
+ZOO_CPU_HW = {"stereonet": 192, "psmnet": 256, "nnet": 256}
+# parameters whose exact gradient is zero: conv3d_alone's bias adds one
+# constant to every plane's logit, which the soft-argmin cancels; the
+# tower's last bias cancels in ref - target on the valid rows. Their
+# update is Adam's first step on rounding, which may be exactly 0.
+ZOO_ZERO_GRAD = {"stereonet": ("conv3d_alone.bias", "feature_extraction.lastconv.bias")}
+
+
+def run_option(name: str):
+    """The merged committed run config `name`, without a workspace."""
+    from dualpixelface_tpu_torch.config import Configuration
+
+    return Configuration(name, make_workspace=False).get_config()
+
+
+def zoo_option(model: str):
+    return run_option(ZOO[model])
+
+
+def zoo_state_dict(config, seed: int = 0) -> dict:
+    """Seeded weights that keep the activations O(1), the recipe of the CPU
+    tests (tests/torch_zoo.py): conv weights N(0, 1) / sqrt(fan in),
+    BatchNorm scales and running variances U(0.5, 1.5), biases and running
+    means 0.1 N(0, 1). The seeded init (He-normal, BatchNorm at identity)
+    grows psmnet's features to ~1e4 and saturates every soft-argmin."""
+    import torch
+
+    from dualpixelface_tpu_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = build_model(config, device="cpu", seed=seed).state_dict()
+    out = {}
+    for name, t in sd.items():
+        if not t.is_floating_point():
+            out[name] = t
+        elif t.ndim > 1:
+            out[name] = torch.randn(t.shape, generator=gen) / math.sqrt(t[0].numel())
+        elif name.endswith("running_var") or (name.endswith("weight") and t.ndim == 1):
+            out[name] = 0.5 + torch.rand(t.shape, generator=gen)
+        else:
+            out[name] = 0.1 * torch.randn(t.shape, generator=gen)
+    return out
+
+
+def zoo_shapes(model: str, config, b: int, h: int, w: int, train: bool = False) -> dict:
+    """Every result key's shape at batch b, h x w: stereonet's coarse and
+    refined depth and its 2^k planes at 1/2^k; psmnet's 1 head (3 in
+    train mode) and nnet's 2, each with 4 * level bins at full resolution."""
+    if model == "stereonet":
+        s = 2 ** int(config.model.k)
+        return {"pred_depth": (b, 2, h, w), "prob_depth": (b, 1, s, h // s, w // s), "ref_feature": (b, h // s, w // s)}
+    n = 2 if model == "nnet" else (3 if train else 1)
+    shapes = {"pred_depth": (b, n, h, w), "prob_depth": (b, n, 4 * config.model.level, h, w),
+              "ref_feature": (b, h // 4, w // 4)}
+    if model == "nnet":
+        shapes["pred_normal"] = (b, 1, h, w, 3)
+    return shapes
+
+
+def check_zoo_results(torch, model: str, res: dict, shapes: dict) -> None:
+    if set(res) != set(shapes):
+        fail(f"phase 12 {model}: result keys {sorted(res)} != {sorted(shapes)}")
+    for key, shape in shapes.items():
+        if tuple(res[key].shape) != shape:
+            fail(f"phase 12 {model}: {key} shape {tuple(res[key].shape)} != {shape}")
+        if not bool(torch.isfinite(res[key].float()).all()):
+            fail(f"phase 12 {model}: {key} has non-finite values")
+
+
+def zoo_serve(torch, model: str, sd: dict, card: str) -> dict:
+    """Phase 12a: 3 request batches of 4 at 768x576 through
+    `Predictor(dtype=float32)`: every key's shape, finiteness, the launch
+    counts (all 0: the zoo calls the plain soft-argmin, as in JAX) set to 0
+    just before and read just after, the peak memory, a smoke reading of
+    pairs/s."""
+    from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualpixelface_tpu_torch.profile_serving import timed
+    from dualpixelface_tpu_torch.serve import Predictor, bench_batch
+
+    config = zoo_option(model)
+    pred = Predictor(config, state_dict=sd, device="cuda", dtype=torch.float32)
+    if tf32_flags(torch) != (False, False):
+        fail(f"phase 12a: TF32 flags {tf32_flags(torch)} after an f32 Predictor")
+    shapes = zoo_shapes(model, config, ZOO_EVAL_BATCH, H, W)
+    batches = [bench_batch(ZOO_EVAL_BATCH, H, W, seed=s) for s in range(3)]
+    check_zoo_results(torch, model, pred(batches[0]), shapes)  # warm-up (cuDNN plans, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    smoke = timed(pred, batches, check=lambda res: check_zoo_results(torch, model, res, shapes))
+    launches = launch_counts()
+    if any(launches.values()):
+        fail(f"phase 12a {model}: launch counts {launches}; the zoo's path runs no kernel of K1-K5")
+    print(json.dumps({"zoo_serving_smoke": {**smoke, "model": model, "batch": ZOO_EVAL_BATCH, "hw": [H, W],
+                                            "dtype": "float32", "launches": launches,
+                                            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                            "card": card}}), flush=True)
+    del pred
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_train(torch, model: str, sd: dict, card: str) -> dict:
+    """Phase 12b: 3 train steps at the run config's batch (stereonet 4,
+    psmnet 2, nnet 2) at 768x576, f32, Adam, from the same seeded weights:
+    finite losses, every parameter moved (but those of ZOO_ZERO_GRAD,
+    reported), the launch counts all 0 (set to 0 just before, read just
+    after), the peak memory, the step wall."""
+    from dualpixelface_tpu_torch.losses import loss_selector
+    from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualpixelface_tpu_torch.ops.precision import exact_f32, resolve_policy
+    from dualpixelface_tpu_torch.profile_serving import timed
+    from dualpixelface_tpu_torch.profile_train import train_batch
+    from dualpixelface_tpu_torch.train.state import create_train_state
+    from dualpixelface_tpu_torch.train.steps import make_train_step
+
+    config = zoo_option(model)
+    b = int(config.batch_size)
+    if resolve_policy(config) != torch.float32 or config.optim != "adam":
+        fail(f"phase 12b {model}: the run config gives {resolve_policy(config)}, {config.optim}")
+    exact_f32()  # the step is built by hand: the f32 setting the Trainer applies to it
+    state = create_train_state(config, steps_per_epoch=100, state_dict=sd, device="cuda")
+    step = make_train_step(state.model, loss_selector(config), torch.float32)
+    names = {f"{n}_loss" for n in config.model.loss_type} | {"final_loss"}
+
+    def check(losses):
+        if set(losses) != names:
+            fail(f"phase 12b {model}: losses {sorted(losses)} != {sorted(names)}")
+        for k, v in losses.items():
+            if not bool(torch.isfinite(v).all()):
+                fail(f"phase 12b {model}: {k} is not finite: {v}")
+
+    check(step(state, train_batch(b, H, W, seed=3))[1])  # warm-up (cuDNN plans, allocator)
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    batches = [train_batch(b, H, W, seed=s) for s in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    smoke = timed(lambda bb: step(state, bb)[1], batches, check=check)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(launches.values()):
+        fail(f"phase 12b {model}: launch counts {launches}; the zoo's path runs no kernel of K1-K5")
+    still = sorted(n for n, p in state.model.named_parameters() if torch.equal(p.detach(), before[n]))
+    if set(still) - set(ZOO_ZERO_GRAD.get(model, ())):
+        fail(f"phase 12b {model}: parameters that did not move in 3 steps: {still}")
+    print(json.dumps({"zoo_train_smoke": {**smoke, "model": model, "batch": b, "hw": [H, W], "dtype": "float32",
+                                          "step_wall_s": smoke["latency_s"]["median"], "launches": launches,
+                                          "peak_memory_gb": peak, "params": len(before), "unmoved": still,
+                                          "card": card}}), flush=True)
+    del state, step, before
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_against_cpu(torch, model: str, sd: dict) -> None:
+    """Phase 12c: the same seeded weights' eval forward at ZOO_CPU_HW,
+    batch 1, f32, the card (at the port's own TF32 setting, which the f32
+    Predictor applies) against the CPU, at phase 6's tolerances: depth
+    within 1e-2; nnet's normals within 1e-3 on 99.5% of the components and
+    1e-3 on average."""
+    from dualpixelface_tpu_torch.serve import Predictor, bench_batch
+
+    config = zoo_option(model)
+    hw = ZOO_CPU_HW[model]
+    batch = bench_batch(1, hw, hw, seed=7)
+    gpu = Predictor(config, state_dict=sd, device="cuda", dtype=torch.float32)(batch)
+    cpu = Predictor(config, state_dict=sd, device="cpu", dtype=torch.float32)(batch)
+    check_zoo_results(torch, model, gpu, zoo_shapes(model, config, 1, hw, hw))
+    d_err = float((gpu["pred_depth"].cpu() - cpu["pred_depth"]).abs().max())
+    line = f"{hw}x{hw} f32 {model} card vs CPU: depth max_abs_err {d_err:.3e} (tol 1e-2)"
+    ok = d_err <= 1e-2
+    if model == "nnet":
+        n_diff = (gpu["pred_normal"].cpu() - cpu["pred_normal"]).abs()
+        n_share, n_mean = float((n_diff <= 1e-3).float().mean()), float(n_diff.mean())
+        line += f"; normals within 1e-3: {n_share:.5f} (tol >= 0.995), mean abs err {n_mean:.3e} (tol 1e-3)"
+        ok = ok and n_share >= 0.995 and n_mean <= 1e-3
+    print(line, flush=True)
+    if not ok:
+        fail(f"phase 12c: the card's {model} forward disagrees with the CPU forward at {hw}x{hw}")
+
+
+def zoo_cli(card: str) -> dict:
+    """Phase 12d: `python -m dualpixelface_tpu_torch.main --config ci_smoke
+    --workspace chip_smoke_zoo` (`run_cli`): the committed run config,
+    stereonet on SyntheticDP, one epoch of batch 4, then a test pass."""
+    config = run_option("ci_smoke")
+    steps = int(config.dataset.train_samples) // int(config.batch_size)
+    return run_cli("12d", "ci_smoke", "stereonet", "chip_smoke_zoo", int(config.batch_size), steps, card)
+
+
+def zoo_phase(torch, card: str, phase) -> dict:
+    """Phase 12 (a-c per model, then d). Returns each model's K1-K5 launch
+    counts, 12a's and 12b's summed (all 0)."""
+    launches = {}
+    for model in ZOO:
+        sd = zoo_state_dict(zoo_option(model))
+        serving = phase(f"12a {model}", zoo_serve, torch, model, sd, card)
+        train = phase(f"12b {model}", zoo_train, torch, model, sd, card)
+        phase(f"12c {model}", zoo_against_cpu, torch, model, sd)
+        launches[model] = {k: serving[k] + train[k] for k in serving}
+    phase("12d", zoo_cli, card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1391,10 +1662,13 @@ def main() -> int:
         print(f"phase {name}: {seconds[name]:.1f} s wall", flush=True)
         return out
 
-    err, timing = phase("3, 4", check_and_time_kernels, torch)
-    phase("3b, 4b", check_and_time_backward_kernels, torch, err, timing)
-    phase("3d, 4c", check_and_time_softargmin, torch, err, timing)
-    phase("3c", check_edge_shapes, torch)
+    print(f"TF32 flags (cudnn, matmul) at the start: {tf32_flags(torch)}", flush=True)
+    with kernel_checks_in_f32(torch):
+        err, timing = phase("3, 4", check_and_time_kernels, torch)
+        phase("3b, 4b", check_and_time_backward_kernels, torch, err, timing)
+        phase("3d, 4c", check_and_time_softargmin, torch, err, timing)
+        phase("3c", check_edge_shapes, torch)
+    print(f"TF32 flags (cudnn, matmul) after the kernel checks: {tf32_flags(torch)}", flush=True)
     config = load_config("stereodpnet_plus")
     exact = load_config("stereodpnet")
     sd = seeded_state_dict(config)  # one tree: stereodpnet's seeded weights are the same
@@ -1406,11 +1680,13 @@ def main() -> int:
     launches = phase("7", train_full_width, torch, sd, card)
     launches_bench = phase("7b", train_full_width, torch, sd, card, "bench")
     phase("8", train_against_cpu, torch)
-    tools = phase("9", tools_phase, torch)
+    with kernel_checks_in_f32(torch):
+        tools = phase("9", tools_phase, torch)
     launches_trainer, reference = phase("10", trainer_full_width, torch, card)
     phase("10b", cli_subprocess, card)
     ddp = phase("11", ddp_phase, torch, card, reference)
     launches_ddp = next(iter(ddp.values()))
+    launches_zoo = zoo_phase(torch, card, phase)
     print(json.dumps({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0}), flush=True)
     k5, t1 = timing["K5"], tools["T1"]
     chain_ms = sum(r["chain_ms"] for r in t1["runs"])
@@ -1433,6 +1709,7 @@ def main() -> int:
             "launches": launches[k], "launches_serving": serving[k], "launches_serving_exact": serving_exact[k],
             "launches_train_bench": launches_bench[k], "launches_trainer": launches_trainer[k],
             "launches_ddp": [r["launches"][k] for r in launches_ddp],
+            "launches_zoo": {m: c[k] for m, c in launches_zoo.items()},
             "max_abs_err": err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],

@@ -31,8 +31,11 @@ def available_models() -> list[str]:
 
 
 def _ensure_imported():
+    from dualpixelface_tpu_torch.models.nnet import mainmodel as _nnet  # noqa: F401
+    from dualpixelface_tpu_torch.models.psmnet import mainmodel as _psm  # noqa: F401
     from dualpixelface_tpu_torch.models.stereodpnet import mainmodel as _sdp  # noqa: F401
     from dualpixelface_tpu_torch.models.stereodpnet_plus import mainmodel as _sdpp  # noqa: F401
+    from dualpixelface_tpu_torch.models.stereonet import mainmodel as _sn  # noqa: F401
 
 
 def model_selector(option) -> nn.Module:

@@ -20,18 +20,12 @@ import torch
 from torch import nn
 
 from dualpixelface_tpu_torch.models import register_model
+from dualpixelface_tpu_torch.models.base import select_ref_target
 from dualpixelface_tpu_torch.models.stereodpnet.modules import ASMCostVolume, FeatureExtraction
 from dualpixelface_tpu_torch.models.stereodpnet.normal_module import ANM
 from dualpixelface_tpu_torch.ops.aggregation import PSMNetHGAggregation
 from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities, soft_argmin
 from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin
-
-
-def select_ref_target(batch: dict, option):
-    """(reference, target) images per dataset.flip_lr."""
-    if option.dataset.flip_lr:
-        return batch["right"], batch["left"]
-    return batch["left"], batch["right"]
 
 
 @register_model("stereodpnet")

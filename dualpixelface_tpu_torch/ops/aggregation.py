@@ -40,7 +40,8 @@ class PSMNetHourglass(nn.Module):
 class PSMNetHGAggregation(nn.Module):
     """Pre-filters + 3 hourglasses + 3 cascaded classifier heads.
 
-    Input [B, 2C, D, H, W]. Returns (logits, feature volumes), one entry per
+    Input [B, in_ch, D, H, W], in_ch 2C unless given (PSMNet's gwcnet
+    volume adds its G group channels). Returns (logits, feature volumes), one entry per
     head: in eval mode the last head only, ([cost3], [out3]); in train mode
     all three, ([cost3, cost2, cost1], [out3, out2, out1]), as the JAX
     package returns them. The logits are [B, 4D, 4H, 4W] (x4 align-corners
@@ -49,11 +50,11 @@ class PSMNetHGAggregation(nn.Module):
     [B, C, D, H, W].
     """
 
-    def __init__(self, c: int, upsample: bool = True):
+    def __init__(self, c: int, upsample: bool = True, in_ch: int | None = None):
         super().__init__()
         self.upsample = upsample
         self.dres0 = nn.Sequential(
-            ConvBN3D(2 * c, c, 3, 1, 1), nn.ReLU(), ConvBN3D(c, c, 3, 1, 1), nn.ReLU()
+            ConvBN3D(2 * c if in_ch is None else in_ch, c, 3, 1, 1), nn.ReLU(), ConvBN3D(c, c, 3, 1, 1), nn.ReLU()
         )
         self.dres1 = nn.Sequential(ConvBN3D(c, c, 3, 1, 1), nn.ReLU(), ConvBN3D(c, c, 3, 1, 1))
         self.dres2 = PSMNetHourglass(c)

@@ -89,10 +89,13 @@ class ConvBN(nn.Sequential):
 
 class ConvBN3D(nn.Sequential):
     """3-D conv + BatchNorm, no activation. [B, C, D, H, W]. The 3x3x3 pad-1
-    convs are the dense conv the JAX package computes as `_DSliceConv3D`."""
+    convs are the dense conv the JAX package computes as `_DSliceConv3D`.
+    `kernel_size`, `strides` and `pad` take an int or a (D, H, W) triple;
+    the default pad is (k - 1) // 2 per axis."""
 
     def __init__(self, in_ch, features, kernel_size=3, strides=1, pad=None):
-        p = pad if pad is not None else (kernel_size - 1) // 2
+        ks = (kernel_size,) * 3 if isinstance(kernel_size, int) else tuple(kernel_size)
+        p = pad if pad is not None else tuple((k - 1) // 2 for k in ks)
         super().__init__(
             nn.Conv3d(in_ch, features, kernel_size, strides, p, bias=False),
             BatchNorm3d(features),

@@ -17,15 +17,20 @@ import torch
 
 from dualpixelface_tpu_torch import resolve_device
 from dualpixelface_tpu_torch.models import build_model
+from dualpixelface_tpu_torch.ops.precision import exact_f32
 from dualpixelface_tpu_torch.weights import load_state_dict
 
 
 class Predictor:
     def __init__(self, config, state_dict=None, device="cuda", dtype=torch.bfloat16):
         """`state_dict`: reference-named weights (numpy or tensors, e.g.
-        from `weights.state_dict_from_jax`); None keeps the seeded init."""
+        from `weights.state_dict_from_jax`); None keeps the seeded init.
+        A float32 predictor turns TF32 off for the process
+        (`ops.precision.exact_f32`)."""
         self.device = resolve_device(device)
         self.dtype = dtype
+        if dtype == torch.float32:
+            exact_f32()
         model = build_model(config, device="cpu")
         if state_dict is not None:
             load_state_dict(model, state_dict)

@@ -99,10 +99,7 @@ def main() -> int:
     smoke = _smoke()
     card = smoke.card_line()
     print(card, flush=True)
-    _build.build()
-    # phase 10 runs in chip_smoke.py after phase 3 has turned TF32 off
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()  # phases 10 and 11's f32 Trainers turn TF32 off themselves
 
     keys = tuple(smoke.DDP_TOL)
     first = smoke.trainer_full_width(torch, card)[1]

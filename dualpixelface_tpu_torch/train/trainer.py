@@ -37,7 +37,7 @@ from dualpixelface_tpu_torch.data.pipeline import make_pipeline, numeric_batch
 from dualpixelface_tpu_torch.losses import loss_selector
 from dualpixelface_tpu_torch.metrics import metric_selector
 from dualpixelface_tpu_torch.models.base import apply_group_swap
-from dualpixelface_tpu_torch.ops.precision import resolve_policy
+from dualpixelface_tpu_torch.ops.precision import exact_f32, resolve_policy
 from dualpixelface_tpu_torch.train.checkpoint import checkpoint_epoch, restore_checkpoint, save_checkpoint
 from dualpixelface_tpu_torch.train.state import create_train_state
 from dualpixelface_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -47,7 +47,8 @@ from dualpixelface_tpu_torch.utils import tensor2numpy
 class Trainer:
     def __init__(self, option, device="cuda", state_dict=None):
         """`option` is a run config (`config.Configuration(...).get_config()`);
-        `state_dict` (reference-named, e.g. `weights.state_dict_from_jax`)
+        an f32 run (`precision` 32) turns TF32 off for the process
+        (`ops.precision.exact_f32`); `state_dict` (reference-named, e.g. `weights.state_dict_from_jax`)
         replaces the seeded init of the weights; a checkpoint named by the
         run key `load_model` is restored over either."""
         self.opt = option
@@ -57,6 +58,8 @@ class Trainer:
         self.loss_bank = loss_selector(option)
         self.metric_bank = metric_selector(option)
         self.compute_dtype = resolve_policy(option)
+        if self.compute_dtype == torch.float32:
+            exact_f32()  # f32 convolutions in f32, not TF32 (process-wide)
         self.state = None
         self.train_step = self.eval_step = None
         self._pipes: dict = {}

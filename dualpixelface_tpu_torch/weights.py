@@ -2,12 +2,15 @@
 
 `read_flax_msgpack` reads a checkpoint the JAX package saved
 (`flax.serialization.to_bytes`) without Flax. `state_dict_from_jax` maps a
-Flax StereoDPNet variable tree onto the reference torch `state_dict` names
-the port's modules carry (the port's own
+Flax variable tree onto the port's `state_dict`: for StereoDPNet, the
+reference torch names the port's modules carry (the port's own
 numpy copy of the mapping in `tools/export_stereodpnet_checkpoint.py`), so
 a JAX-trained checkpoint loads into the port with `strict=True` (the ASM's
 PReLU of `asm_activation: "relu"`, which the exporter leaves out, is mapped
-to `cost_volume.attention_layer.prelu.weight`). Flax conv
+to `cost_volume.attention_layer.prelu.weight`); for the zoo's stereonet,
+psmnet and nnet (`model=`), the port's own names, which follow the JAX
+tree, with Flax's automatic names (`Conv_0`, `ResidualBlock_3`,
+`BasicBlock_12`, ...) mapped in their call order. Flax conv
 kernels [*k, I, O] become torch [O, I, *k]; transposed-conv kernels
 [*k, O, I] become torch ConvTranspose [I, O, *k].
 """
@@ -123,10 +126,94 @@ class _Mapper:
         self.conv(f"{fpath}/conv_offset", f"{tname}.conv_offset", bias=True)
 
 
-def state_dict_from_jax(params, batch_stats, block_stack: int = 1) -> dict[str, np.ndarray]:
-    """Flax StereoDPNet (params, batch_stats) -> reference torch state_dict
-    (numpy arrays), key for key what the JAX package's exporter emits."""
+    def aggregation(self, fpath, tname):
+        """PSMNetHGAggregation: the pre-filters, 3 hourglasses, 3 heads."""
+        self.convbn(f"{fpath}/dres0_0", f"{tname}.dres0.0")
+        self.convbn(f"{fpath}/dres0_1", f"{tname}.dres0.2")
+        self.convbn(f"{fpath}/dres1_0", f"{tname}.dres1.0")
+        self.convbn(f"{fpath}/dres1_1", f"{tname}.dres1.2")
+        for i in (2, 3, 4):
+            self.hourglass(f"{fpath}/dres{i}", f"{tname}.dres{i}")
+        for i in (1, 2, 3):
+            self.convbn(f"{fpath}/classif{i}_0", f"{tname}.classif{i}.0")
+            self.conv(f"{fpath}/classif{i}_1", f"{tname}.classif{i}.2")
+
+    def spp(self, fpath, tname):
+        """PSMNet's SPP tower. Flax numbers its blocks in call order
+        (ConvBN_0-2 the first convs, ConvBN_3-6 the pool branches, ConvBN_7
+        the last; BasicBlock_<n> through layer1-4 of 3, C/2, 3, 3 blocks)."""
+        p = self._get(self.params, fpath)
+        c = np.shape(p["ConvBN_0"]["Conv_0"]["kernel"])[-1]
+        for i in range(3):
+            self.convbn(f"{fpath}/ConvBN_{i}", f"{tname}.firstconv.{i}")
+        n = 0
+        for layer, blocks in enumerate((3, c // 2, 3, 3), start=1):
+            for j in range(blocks):
+                fb, tb = f"{fpath}/BasicBlock_{n}", f"{tname}.layer{layer}.{j}"
+                self.convbn(f"{fb}/ConvBN_0", f"{tb}.convbn1")
+                self.convbn(f"{fb}/ConvBN_1", f"{tb}.convbn2")
+                if "Conv_0" in p[f"BasicBlock_{n}"]:
+                    self.conv(f"{fb}/Conv_0", f"{tb}.downsample.0")
+                    self.bn(f"{fb}/BatchNorm_0", f"{tb}.downsample.1")
+                n += 1
+        for i in range(4):
+            self.convbn(f"{fpath}/ConvBN_{3 + i}", f"{tname}.branches.{i}")
+        self.convbn(f"{fpath}/ConvBN_7", f"{tname}.lastconv")
+        self.conv(f"{fpath}/Conv_0", f"{tname}.classify")
+
+
+def _stereonet(m: _Mapper) -> None:
+    """Flax numbers the tower's convs in call order: Conv_0..Conv_{k-1}
+    the stride-2 convs, Conv_k the last."""
+    fe = "feature_extraction"
+    k = sum(1 for name in m.params[fe] if name.startswith("Conv_")) - 1
+    for i in range(k):
+        m.conv(f"{fe}/Conv_{i}", f"{fe}.downsample.{i}", bias=True)
+    for part in (fe, "refinement"):
+        for i in range(6):
+            m.convbn(f"{part}/ResidualBlock_{i}/ConvBN_0", f"{part}.blocks.{i}.convbn")
+    m.conv(f"{fe}/Conv_{k}", f"{fe}.lastconv", bias=True)
+    for i in range(4):
+        m.convbn(f"filter{i}", f"filter{i}")
+    m.conv("conv3d_alone", "conv3d_alone", bias=True)
+    m.convbn("refinement/ConvBN_0", "refinement.convbn")
+    m.conv("refinement/Conv_0", "refinement.lastconv", bias=True)
+
+
+def _psmnet(m: _Mapper) -> None:
+    m.spp("feature_extraction", "feature_extraction")
+    m.aggregation("aggregation", "aggregation")
+
+
+def _nnet(m: _Mapper) -> None:
+    m.spp("feature_extraction", "feature_extraction")
+    for name in [f"dres{i}_{j}" for i in range(5) for j in (0, 1)] + ["classify_0"]:
+        m.convbn(name, name)
+    m.conv("classify_1", "classify_1")
+    for i in range(7):
+        m.conv(f"convs{i}", f"convs.{i}")
+    if "normal_module" in m.params:
+        nm = "normal_module"
+        for name in ("wc0_0", "wc0_1", "pool1", "pool2", "pool3"):
+            m.convbn(f"{nm}/{name}", f"{nm}.{name}")
+        for i in range(7):
+            m.conv(f"{nm}/n_convs{i}", f"{nm}.n_convs.{i}")
+
+
+ZOO = {"stereonet": _stereonet, "psmnet": _psmnet, "nnet": _nnet}
+
+
+def state_dict_from_jax(params, batch_stats, block_stack: int = 1, model: str = "stereodpnet") -> dict[str, np.ndarray]:
+    """Flax (params, batch_stats) of `model` -> the port's state_dict (numpy
+    arrays). StereoDPNet and StereoDPNet+ (one tree): key for key what the
+    JAX package's exporter emits, the reference torch names. The zoo
+    models (`ZOO`): the port's names, which follow the JAX tree."""
     m = _Mapper(params, batch_stats)
+    if model in ZOO:
+        ZOO[model](m)
+        return m.sd
+    if model not in ("stereodpnet", "stereodpnet_plus"):
+        raise NotImplementedError(f"no weight mapping for model {model!r}")
     fe = "feature_extraction"
     for i, idx in enumerate((0, 2, 4)):
         m.convbn(f"{fe}/firstconv{i}", f"{fe}.firstconv.{idx}")
@@ -145,16 +232,7 @@ def state_dict_from_jax(params, batch_stats, block_stack: int = 1) -> dict[str, 
 
     m.attention("cost_volume/attention", "cost_volume.attention_layer")
 
-    ag = "aggregation"
-    m.convbn(f"{ag}/dres0_0", f"{ag}.dres0.0")
-    m.convbn(f"{ag}/dres0_1", f"{ag}.dres0.2")
-    m.convbn(f"{ag}/dres1_0", f"{ag}.dres1.0")
-    m.convbn(f"{ag}/dres1_1", f"{ag}.dres1.2")
-    for i in (2, 3, 4):
-        m.hourglass(f"{ag}/dres{i}", f"{ag}.dres{i}")
-    for i in (1, 2, 3):
-        m.convbn(f"{ag}/classif{i}_0", f"{ag}.classif{i}.0")
-        m.conv(f"{ag}/classif{i}_1", f"{ag}.classif{i}.2")
+    m.aggregation("aggregation", "aggregation")
 
     if params.get("normal_estimator"):
         m.anm("normal_estimator", "normal_estimator")

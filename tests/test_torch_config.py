@@ -21,10 +21,9 @@ two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_s
 
 REPO = Path(__file__).resolve().parent.parent
 PORTED = ["train_faceDP", "eval_faceDP", "demo_faceDP", "train_synthetic_stereodpnet",
-          "train_synthetic_stereodpnet_plus", "eval_synthetic_stereodpnet"]
-ZOO = {"ci_smoke": "stereonet", "eval_faceDP_dpnet": "dpnet", "train_faceDP_bts": "bts",
-       "train_faceDP_dpnet": "dpnet", "train_faceDP_nnet": "nnet", "train_faceDP_psmnet": "psmnet",
-       "train_faceDP_stereonet": "stereonet", "train_synthetic_stereonet": "stereonet"}
+          "train_synthetic_stereodpnet_plus", "eval_synthetic_stereodpnet", "ci_smoke",
+          "train_synthetic_stereonet", "train_faceDP_stereonet", "train_faceDP_psmnet", "train_faceDP_nnet"]
+ZOO = {"eval_faceDP_dpnet": "dpnet", "train_faceDP_bts": "bts", "train_faceDP_dpnet": "dpnet"}
 
 
 def _root(tmp_path) -> Path:
@@ -91,7 +90,7 @@ def test_load_config_keeps_its_tree():
     assert cfg.model.level == 4 and cfg.dataset.flip_lr is True and cfg.get("epoch", 7) == 7
     assert load_config().model_name == "stereodpnet_plus"
     with pytest.raises(FileNotFoundError):
-        load_config("psmnet")
+        load_config("dpnet")
 
 
 def test_config_access():
