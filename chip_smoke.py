@@ -110,20 +110,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      global losses, parameters, BatchNorm buffers and test tables are held
      to phase 10's at DDP_TOL (why those bounds: beside it). A rank that
      fails fails the phase.
-  12. the cost-volume zoo (`stereonet`, `psmnet`, `nnet`) at its committed
-     widths through each model's FaceDP run config, f32, seeded weights
-     that keep the activations O(1) (`zoo_state_dict`), per model: 12a 3
-     request batches of 4 at 768x576 through `Predictor(dtype=float32)`
-     (every key's shape, finiteness, the peak memory, a smoke reading of
-     pairs/s); 12b 3 train steps at the run config's batch (stereonet 4,
-     psmnet 2, nnet 2), Adam (finite losses, every weight moved, the peak
-     memory, the step wall); 12a and 12b with the launch counts set to 0
-     just before and read just after, all 0 (the zoo calls the plain
-     soft-argmin, as in JAX); 12c the card's forward against the CPU's at
-     192x192 (psmnet and nnet 256x256: their SPP pools need 2C quarter-
-     resolution pixels) with phase 6's tolerances; then 12d the CLI on the
-     committed `ci_smoke` (stereonet on SyntheticDP, one epoch of batch 4)
-     as phase 10b runs it, in a subprocess, its workspace removed after.
+  12. the zoo (`stereonet`, `psmnet`, `nnet`, `dpnet`, `bts`) at its
+     committed widths through each model's FaceDP run config, f32, seeded
+     weights that keep the activations O(1) (`zoo_state_dict`; dpnet's
+     BatchNorm statistics those of a train-mode forward), per model:
+     12a 3 request batches of 4 at 768x576 through
+     `Predictor(dtype=float32)` (every key's shape, finiteness, the peak
+     memory, a smoke reading of pairs/s; bts reads the center view); 12b 3
+     train steps at the run config's batch (stereonet 4, the others 2),
+     Adam (finite losses, every weight moved, the peak memory, the step
+     wall); 12a and 12b with the launch counts set to 0 just before and
+     read just after, all 0 (the zoo calls the plain soft-argmin, as in
+     JAX, and dpnet and bts no kernel of K1-K5); 12c the card's forward
+     against the CPU's at 192x192 (psmnet and nnet 256x256: their SPP pools
+     need 2C quarter-resolution pixels) with phase 6's tolerances (bts: its
+     depth within 1e-4 of max_depth, `zoo_against_cpu` says why); then 12d
+     the CLI on the committed `ci_smoke` (stereonet on SyntheticDP, one
+     epoch of batch 4) as phase 10b runs it, and on the committed
+     `eval_faceDP_dpnet` in test mode on a FaceDP fixture at 768x576,
+     restoring the checkpoint that `train/checkpoint.py` wrote from dpnet's
+     12b state, each in a subprocess, its workspace removed after.
 The kernel checks (phases 3-4c and 9) run with TF32 off for cuDNN and CUDA
 matmuls, scoped: every other phase runs at the port's own setting, which
 an f32 Trainer or Predictor applies (`ops.precision.exact_f32`), and
@@ -138,7 +144,7 @@ K1-K5 the train path's run of phase 7, `launches_serving` phase 5's,
 `launches_serving_exact` phase 5b's, `launches_train_bench` phase 7b's,
 `launches_trainer` phase 10's, fit and test, `launches_ddp` phase 11's
 per rank on the one card, fit and test, every row; K1-K5 `launches_zoo`
-phase 12's per model, 12a and 12b;
+phase 12's per model (the five), 12a and 12b;
 T1-T4 the tools' measurements in phase 9, whose T rows sum the runs' times
 and bounds; K1-K5 also carry `device_ms`, phases 4-4c's time on the device
 alone); the last line is {"ok": true, "device": {...}}.
@@ -1203,13 +1209,18 @@ def trainer_full_width(torch, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_cli(label: str, config: str, model: str, workspace: str, batch: int, steps: int, card: str) -> dict:
+def run_cli(label: str, config: str, model: str, workspace: str, batch: int, steps, card: str,
+            load_model: str | None = None) -> dict:
     """`python -m dualpixelface_tpu_torch.main --config <config> --workspace
-    <workspace>` as a user calls it, in a subprocess under a timeout. Checks
-    rc 0, the train record (`steps` steps, a finite loss) and the test
-    record, the epoch's checkpoint, then removes the workspace it made.
-    Where gcd(batch, cards) > 1 the CLI runs that many ranks through
-    `parallel.spawn`, one a card over nccl, and must print so."""
+    <workspace> [--load_model <load_model>]` as a user calls it, in a
+    subprocess under a timeout. Checks rc 0, the train record (`steps`
+    steps, a finite loss) and the test record, the epoch's checkpoint
+    (with `steps` None, a test-mode run: the test record alone, every entry
+    finite but absolute_dp's rmse_log, the log of depths that a model of
+    seeded weights may make negative, and no checkpoint), then removes the
+    workspace it made. Where gcd(batch, cards) > 1 the CLI runs that many
+    ranks through `parallel.spawn`, one a card over nccl, and must print
+    so."""
     import shutil
 
     import torch
@@ -1220,8 +1231,10 @@ def run_cli(label: str, config: str, model: str, workspace: str, batch: int, ste
     made = [d for d in (ROOT / "workspace", ws.parent) if not d.exists()]
     try:
         t0 = time.perf_counter()
+        extra = ["--load_model", load_model] if load_model else []
         out = subprocess.run([sys.executable, "-m", "dualpixelface_tpu_torch.main", "--config", config,
-                              "--workspace", workspace], cwd=ROOT, capture_output=True, text=True, timeout=600)
+                              "--workspace", workspace, *extra], cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
         cli_s = time.perf_counter() - t0
         if out.returncode != 0:
             fail(f"phase {label}: the CLI exited {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
@@ -1232,12 +1245,21 @@ def run_cli(label: str, config: str, model: str, workspace: str, batch: int, ste
             fail(f"phase {label}: on {cards} cards the CLI did not print '{spawned}':\n{out.stdout[-2000:]}")
         records = [json.loads(line) for line in (ws / "output" / "metrics.jsonl").read_text().splitlines()]
         ckpts = sorted(p.name for p in (ws / "checkpoints").iterdir())
-        train = records[0] if records else {}
-        if [r["mode"] for r in records] != ["train", "test"] or ckpts != ["checkpoint_00.pt"] or \
-                train.get("steps") != float(steps) or not math.isfinite(train.get("final_loss", math.nan)):
-            fail(f"phase {label}: records {records}, checkpoints {ckpts}")
+        if steps is None:
+            train = None
+            test = records[0] if records else {}
+            if [r["mode"] for r in records] != ["test"] or ckpts or not all(
+                    math.isfinite(v) for k, v in test.items() if isinstance(v, float) and k != "absolute_dp/rmse_log"):
+                fail(f"phase {label}: records {records}, checkpoints {ckpts}")
+        else:
+            train = records[0] if records else {}
+            if [r["mode"] for r in records] != ["train", "test"] or ckpts != ["checkpoint_00.pt"] or \
+                    train.get("steps") != float(steps) or not math.isfinite(train.get("final_loss", math.nan)):
+                fail(f"phase {label}: records {records}, checkpoints {ckpts}")
+            test = records[1]
         summary = {"config": Path(config).name, "model": model, "rc": out.returncode, "cli_s": cli_s,
-                   "ranks": ranks, "train_record": train, "test_record": records[1], "card": card}
+                   "ranks": ranks, "load_model": load_model, "train_record": train, "test_record": test,
+                   "card": card}
         print(json.dumps({"cli_smoke": summary}), flush=True)
         return summary
     finally:
@@ -1416,15 +1438,19 @@ def ddp_phase(torch, card, reference):
     return runs
 
 
-# phase 12: the cost-volume zoo at its committed widths (stereonet k 3;
-# psmnet and nnet inplanes 32, level 8) through each model's FaceDP run
-# config (f32, Adam, flip_lr), at 768x576.
-ZOO = {"stereonet": "train_faceDP_stereonet", "psmnet": "train_faceDP_psmnet", "nnet": "train_faceDP_nnet"}
+# phase 12: the zoo at its committed widths (stereonet k 3; psmnet and nnet
+# inplanes 32, level 8; dpnet; bts ResNet-50 at bts_size 256) through each
+# model's FaceDP run config (f32, Adam, flip_lr), at 768x576.
+ZOO = {"stereonet": "train_faceDP_stereonet", "psmnet": "train_faceDP_psmnet", "nnet": "train_faceDP_nnet",
+       "dpnet": "train_faceDP_dpnet", "bts": "train_faceDP_bts"}
 ZOO_EVAL_BATCH = 4
-# 12c's size: 192x192 as phase 6 for stereonet; psmnet's and nnet's SPP
-# pools take windows of up to 2C = 64 quarter-resolution pixels, so 256x256
-# is their smallest square
-ZOO_CPU_HW = {"stereonet": 192, "psmnet": 256, "nnet": 256}
+# 12c's size: 192x192 as phase 6 for stereonet, and for dpnet (a multiple
+# of 96, where its five heads land on the full resolution) and bts (of
+# 32); psmnet's and nnet's SPP pools take windows of up to 2C = 64
+# quarter-resolution pixels, so 256x256 is their smallest square
+ZOO_CPU_HW = {"stereonet": 192, "psmnet": 256, "nnet": 256, "dpnet": 192, "bts": 192}
+# the models that read the center view (the others the dual-pixel pair)
+ZOO_CENTER = ("bts",)
 # parameters whose exact gradient is zero: conv3d_alone's bias adds one
 # constant to every plane's logit, which the soft-argmin cancels; the
 # tower's last bias cancels in ref - target on the valid rows. Their
@@ -1443,20 +1469,35 @@ def zoo_option(model: str):
     return run_option(ZOO[model])
 
 
+# dpnet's eval forward at zoo_state_dict's random running statistics grows
+# to ~1.5e4 through its 13 residual stages (each adds its skip, and eval
+# BatchNorms with those statistics do not renormalise), where f32 alone
+# leaves 2.9e-2 of absolute error (the CPU against f64 at 192x192, 12c's
+# size), beyond 12c's 1e-2: its running statistics are set to a train-mode
+# forward's batch statistics instead, as a trained model's match its
+# activations (`zoo_state_dict`)
+ZOO_CALIBRATED = ("dpnet",)
+
+
 def zoo_state_dict(config, seed: int = 0) -> dict:
     """Seeded weights that keep the activations O(1), the recipe of the CPU
     tests (tests/torch_zoo.py): conv weights N(0, 1) / sqrt(fan in),
     BatchNorm scales and running variances U(0.5, 1.5), biases and running
     means 0.1 N(0, 1). The seeded init (He-normal, BatchNorm at identity)
-    grows psmnet's features to ~1e4 and saturates every soft-argmin."""
+    grows psmnet's features to ~1e4 and saturates every soft-argmin. For
+    the models of ZOO_CALIBRATED, each BatchNorm's running statistics are
+    then its batch statistics in one train-mode forward (momentum 1) of
+    `profile_train.train_batch(2, 192, 192)` on the CPU."""
     import torch
 
     from dualpixelface_tpu_torch.models import build_model
+    from dualpixelface_tpu_torch.profile_train import train_batch
+    from dualpixelface_tpu_torch.weights import load_state_dict
 
     gen = torch.Generator().manual_seed(seed)
-    sd = build_model(config, device="cpu", seed=seed).state_dict()
+    model = build_model(config, device="cpu", seed=seed)
     out = {}
-    for name, t in sd.items():
+    for name, t in model.state_dict().items():
         if not t.is_floating_point():
             out[name] = t
         elif t.ndim > 1:
@@ -1465,13 +1506,40 @@ def zoo_state_dict(config, seed: int = 0) -> dict:
             out[name] = 0.5 + torch.rand(t.shape, generator=gen)
         else:
             out[name] = 0.1 * torch.randn(t.shape, generator=gen)
+    if config.model_name in ZOO_CALIBRATED:
+        load_state_dict(model, out)
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                mod.momentum = 1.0
+        with torch.no_grad():
+            model.train()({k: torch.as_tensor(v) for k, v in train_batch(2, 192, 192, seed=seed).items()})
+        out = {k: v.clone() for k, v in model.state_dict().items()}
     return out
+
+
+def zoo_batch(model: str, b: int, h: int, w: int, seed: int = 0) -> dict:
+    """A request batch of `serve.bench_batch`, with a random center view for
+    the models of ZOO_CENTER."""
+    import numpy as np
+
+    from dualpixelface_tpu_torch.serve import bench_batch
+
+    batch = bench_batch(b, h, w, seed=seed)
+    if model in ZOO_CENTER:
+        batch["center"] = np.random.default_rng(seed + 100).standard_normal((b, h, w, 3)).astype(np.float32)
+    return batch
 
 
 def zoo_shapes(model: str, config, b: int, h: int, w: int, train: bool = False) -> dict:
     """Every result key's shape at batch b, h x w: stereonet's coarse and
     refined depth and its 2^k planes at 1/2^k; psmnet's 1 head (3 in
-    train mode) and nnet's 2, each with 4 * level bins at full resolution."""
+    train mode) and nnet's 2, each with 4 * level bins at full resolution;
+    dpnet's 5 heads and its first stage's channel max; bts's depth and its
+    encoder's first skip's channel max."""
+    if model == "dpnet":
+        return {"pred_depth": (b, 5, h, w), "ref_feature": (b, (h - 5) // 2 + 1, (w - 5) // 2 + 1)}
+    if model == "bts":
+        return {"pred_depth": (b, 1, h, w), "ref_feature": (b, h // 2, w // 2)}
     if model == "stereonet":
         s = 2 ** int(config.model.k)
         return {"pred_depth": (b, 2, h, w), "prob_depth": (b, 1, s, h // s, w // s), "ref_feature": (b, h // s, w // s)}
@@ -1501,14 +1569,14 @@ def zoo_serve(torch, model: str, sd: dict, card: str) -> dict:
     pairs/s."""
     from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from dualpixelface_tpu_torch.profile_serving import timed
-    from dualpixelface_tpu_torch.serve import Predictor, bench_batch
+    from dualpixelface_tpu_torch.serve import Predictor
 
     config = zoo_option(model)
     pred = Predictor(config, state_dict=sd, device="cuda", dtype=torch.float32)
     if tf32_flags(torch) != (False, False):
         fail(f"phase 12a: TF32 flags {tf32_flags(torch)} after an f32 Predictor")
     shapes = zoo_shapes(model, config, ZOO_EVAL_BATCH, H, W)
-    batches = [bench_batch(ZOO_EVAL_BATCH, H, W, seed=s) for s in range(3)]
+    batches = [zoo_batch(model, ZOO_EVAL_BATCH, H, W, seed=s) for s in range(3)]
     check_zoo_results(torch, model, pred(batches[0]), shapes)  # warm-up (cuDNN plans, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1526,12 +1594,13 @@ def zoo_serve(torch, model: str, sd: dict, card: str) -> dict:
     return launches
 
 
-def zoo_train(torch, model: str, sd: dict, card: str) -> dict:
-    """Phase 12b: 3 train steps at the run config's batch (stereonet 4,
-    psmnet 2, nnet 2) at 768x576, f32, Adam, from the same seeded weights:
-    finite losses, every parameter moved (but those of ZOO_ZERO_GRAD,
-    reported), the launch counts all 0 (set to 0 just before, read just
-    after), the peak memory, the step wall."""
+def zoo_train(torch, model: str, sd: dict, card: str, ckpt_dir=None) -> dict:
+    """Phase 12b: 3 train steps at the run config's batch (stereonet 4, the
+    others 2) at 768x576, f32, Adam, from the same seeded weights: finite
+    losses, every parameter moved (but those of ZOO_ZERO_GRAD, reported),
+    the launch counts all 0 (set to 0 just before, read just after), the
+    peak memory, the step wall. With `ckpt_dir`, the state after the steps
+    is written there through `train/checkpoint.py` (epoch 0)."""
     from dualpixelface_tpu_torch.losses import loss_selector
     from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from dualpixelface_tpu_torch.ops.precision import exact_f32, resolve_policy
@@ -1574,6 +1643,10 @@ def zoo_train(torch, model: str, sd: dict, card: str) -> dict:
                                           "step_wall_s": smoke["latency_s"]["median"], "launches": launches,
                                           "peak_memory_gb": peak, "params": len(before), "unmoved": still,
                                           "card": card}}), flush=True)
+    if ckpt_dir is not None:
+        from dualpixelface_tpu_torch.train.checkpoint import save_checkpoint
+
+        save_checkpoint(str(ckpt_dir), state, 0)
     del state, step, before
     torch.cuda.empty_cache()
     return launches
@@ -1584,18 +1657,24 @@ def zoo_against_cpu(torch, model: str, sd: dict) -> None:
     batch 1, f32, the card (at the port's own TF32 setting, which the f32
     Predictor applies) against the CPU, at phase 6's tolerances: depth
     within 1e-2; nnet's normals within 1e-3 on 99.5% of the components and
-    1e-3 on average."""
-    from dualpixelface_tpu_torch.serve import Predictor, bench_batch
+    1e-3 on average. bts's depth is in millimetres, max_depth x a sigmoid
+    floored at min_depth ([700, 1500]), not a disparity of a few units: it
+    is held within 1e-4 of max_depth (0.15 mm), which is 1e-4 of the
+    sigmoid, about what f32 keeps through ResNet-50 and the decoder's
+    ~60 layers summed in another order (1e-2 would pass a sigmoid wrong in
+    its fifth digit)."""
+    from dualpixelface_tpu_torch.serve import Predictor
 
     config = zoo_option(model)
     hw = ZOO_CPU_HW[model]
-    batch = bench_batch(1, hw, hw, seed=7)
+    batch = zoo_batch(model, 1, hw, hw, seed=7)
     gpu = Predictor(config, state_dict=sd, device="cuda", dtype=torch.float32)(batch)
     cpu = Predictor(config, state_dict=sd, device="cpu", dtype=torch.float32)(batch)
     check_zoo_results(torch, model, gpu, zoo_shapes(model, config, 1, hw, hw))
     d_err = float((gpu["pred_depth"].cpu() - cpu["pred_depth"]).abs().max())
-    line = f"{hw}x{hw} f32 {model} card vs CPU: depth max_abs_err {d_err:.3e} (tol 1e-2)"
-    ok = d_err <= 1e-2
+    tol = 1e-4 * float(config.model.max_depth) if model == "bts" else 1e-2
+    line = f"{hw}x{hw} f32 {model} card vs CPU: depth max_abs_err {d_err:.3e} (tol {tol:.3g})"
+    ok = d_err <= tol
     if model == "nnet":
         n_diff = (gpu["pred_normal"].cpu() - cpu["pred_normal"]).abs()
         n_share, n_mean = float((n_diff <= 1e-3).float().mean()), float(n_diff.mean())
@@ -1615,17 +1694,52 @@ def zoo_cli(card: str) -> dict:
     return run_cli("12d", "ci_smoke", "stereonet", "chip_smoke_zoo", int(config.batch_size), steps, card)
 
 
+# 12d's FaceDP fixture for eval_faceDP_dpnet: 8 test samples (2 batches of
+# 4) at the serving size, which config_test's center crop (ratio 1, factor
+# 96) keeps whole
+ZOO_EVAL_FIXTURE = {"n_train": 1, "n_test": 8, "height": H, "width": W}
+
+
+def zoo_eval_cli(card: str, tmp: Path) -> dict:
+    """Phase 12d, dpnet: the committed `eval_faceDP_dpnet` (test mode, batch
+    4) through the CLI (`run_cli`, --load_model the checkpoint that
+    12b wrote from dpnet's state under `tmp`), its dataset the FaceDP
+    fixture ZOO_EVAL_FIXTURE written under `tmp`, named by a copy of the run
+    config there; `tmp` is removed after."""
+    import shutil
+
+    from dualpixelface_tpu_torch.data.SyntheticDP.fixture import write_fixture_tree
+
+    try:
+        fixture = write_fixture_tree(tmp / "rcv", **ZOO_EVAL_FIXTURE)
+        data = json.loads((ROOT / "dualpixelface_tpu_torch" / "data" / "FaceDP" / "config.json").read_text())
+        (tmp / "facedp.json").write_text(json.dumps({**data, "path": str(fixture)}))
+        run = json.loads((ROOT / "configs" / "eval_faceDP_dpnet.json").read_text())
+        (tmp / "configs").mkdir()
+        (tmp / "configs" / "eval_faceDP_dpnet.json").write_text(json.dumps({**run, "dataset_config": str(tmp / "facedp")}))
+        return run_cli("12d", str(tmp / "configs" / "eval_faceDP_dpnet.json"), "dpnet", "chip_smoke_dpnet",
+                       run["batch_size"], None, card, load_model=str(tmp / "ckpt" / "checkpoint_00.pt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def zoo_phase(torch, card: str, phase) -> dict:
     """Phase 12 (a-c per model, then d). Returns each model's K1-K5 launch
     counts, 12a's and 12b's summed (all 0)."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase12d_", dir=ROOT / "build"))
+    (tmp / "ckpt").mkdir()
     launches = {}
     for model in ZOO:
         sd = zoo_state_dict(zoo_option(model))
         serving = phase(f"12a {model}", zoo_serve, torch, model, sd, card)
-        train = phase(f"12b {model}", zoo_train, torch, model, sd, card)
+        train = phase(f"12b {model}", zoo_train, torch, model, sd, card, tmp / "ckpt" if model == "dpnet" else None)
         phase(f"12c {model}", zoo_against_cpu, torch, model, sd)
         launches[model] = {k: serving[k] + train[k] for k in serving}
     phase("12d", zoo_cli, card)
+    phase("12d dpnet", zoo_eval_cli, card, tmp)
     return launches
 
 

@@ -26,6 +26,23 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor | None, eps: float = 1e-8) -
     return (x * m).sum() / torch.clamp_min(m.sum(), eps)
 
 
+def global_masked_means(xs: list[torch.Tensor], mask: torch.Tensor | None, eps: float = 1e-8) -> list[torch.Tensor]:
+    """Each of `xs`' masked means over the global batch, the same value on
+    every rank, for a loss that is not linear in its means (`masked_mean`'s
+    per-rank shares average to the global mean, but a function of them
+    does not average to the function of it). With W ranks the sums go
+    through the differentiable all-reduce, whose backward sums the ranks'
+    gradients, and `parallel.all_reduce_grads` then averages them: every
+    rank gets the global loss's gradient. One process computes
+    `masked_mean`'s quotients."""
+    if parallel.world().size <= 1:
+        return [masked_mean(x, mask, eps) for x in xs]
+    m = None if mask is None else mask.to(xs[0].dtype)
+    sums = parallel.all_reduce_sum(torch.stack([(x if m is None else x * m).sum() for x in xs]))
+    count = parallel.global_count(xs[0].new_tensor(float(xs[0].numel())) if m is None else m.sum())
+    return list((sums / torch.clamp_min(count, eps)).unbind())
+
+
 def smooth_l1(diff: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
     """Elementwise smooth-L1 (Huber) with threshold beta."""
     a = diff.abs()

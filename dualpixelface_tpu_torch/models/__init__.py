@@ -31,6 +31,8 @@ def available_models() -> list[str]:
 
 
 def _ensure_imported():
+    from dualpixelface_tpu_torch.models.bts import mainmodel as _bts  # noqa: F401
+    from dualpixelface_tpu_torch.models.dpnet import mainmodel as _dpnet  # noqa: F401
     from dualpixelface_tpu_torch.models.nnet import mainmodel as _nnet  # noqa: F401
     from dualpixelface_tpu_torch.models.psmnet import mainmodel as _psm  # noqa: F401
     from dualpixelface_tpu_torch.models.stereodpnet import mainmodel as _sdp  # noqa: F401
@@ -47,21 +49,57 @@ def model_selector(option) -> nn.Module:
     return _MODEL_REGISTRY[name](option)
 
 
+def _modules_with_init(model: nn.Module):
+    """(module, conv init) for every module of `model` in `model.modules()`
+    order (each shared module once), the init the innermost module that
+    declares `conv_init` names, itself included: "he_normal_out" unless a
+    model says otherwise."""
+    seen = set()
+
+    def walk(mod, init):
+        if id(mod) in seen:
+            return
+        seen.add(id(mod))
+        init = getattr(mod, "conv_init", init)
+        yield mod, init
+        for child in mod.children():
+            yield from walk(child, init)
+
+    yield from walk(model, "he_normal_out")
+
+
+def _conv_weight(w: torch.Tensor, init: str, transposed: bool, g: torch.Generator) -> torch.Tensor:
+    """he_normal_out: N(0, 2 / n), n = kernel volume x out channels (the
+    reference's normal_(0, sqrt(2/n)); a transposed conv's out channels are
+    its weight's dim 1). xavier_uniform: U(+-sqrt(6 / (fan_in + fan_out))),
+    Flax's `xavier_uniform` and torch's, which agree for every layout
+    (grouped and transposed too) as they add the two fans."""
+    rf = math.prod(w.shape[2:])
+    if init == "he_normal_out":
+        n = rf * (w.shape[1] if transposed else w.shape[0])
+        return torch.randn(w.shape, generator=g) * math.sqrt(2.0 / n)
+    if init == "xavier_uniform":
+        bound = math.sqrt(6.0 / ((w.shape[0] + w.shape[1]) * rf))
+        return (torch.rand(w.shape, generator=g) * 2 - 1) * bound
+    raise ValueError(f"conv init {init!r}")
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Deterministic init from `seed`: convolutions He-normal with fan_out
-    (the reference's normal_(0, sqrt(2/n)), n = kernel volume x out channels)
-    and zero bias; norms at identity with running stats (0, 1); deformable
-    convs U(+-1/sqrt(fan_in)) with their offset heads at zero."""
+    """Deterministic init from `seed`: every convolution (2-D, 3-D,
+    transposed or not) by its model's `conv_init` (He-normal with fan_out,
+    the reference's, unless a model or one of its modules declares
+    "xavier_uniform", as dpnet and BTS's decoder do in JAX) and zero bias;
+    norms at identity with running stats (0, 1); deformable convs
+    U(+-1/sqrt(fan_in)) with their offset heads at zero. The draws follow
+    `model.modules()` order."""
     from dualpixelface_tpu_torch.ops.blocks import InstanceNorm
     from dualpixelface_tpu_torch.ops.deform_conv3d import DeformConvPack3D
 
     g = torch.Generator().manual_seed(seed)
-    for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
-            out_ch = mod.weight.shape[1] if isinstance(mod, nn.ConvTranspose3d) else mod.weight.shape[0]
-            n = math.prod(mod.weight.shape[2:]) * out_ch
-            mod.weight.copy_(torch.randn(mod.weight.shape, generator=g) * math.sqrt(2.0 / n))
+    for mod, conv_init in _modules_with_init(model):
+        if isinstance(mod, nn.modules.conv._ConvNd):
+            mod.weight.copy_(_conv_weight(mod.weight, conv_init, mod.transposed, g))
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.modules.batchnorm._BatchNorm):

@@ -17,15 +17,17 @@ from dualpixelface_tpu_torch import parallel
 
 
 class _FlaxTrainBatchNorm:
-    """Train mode as Flax's `nn.BatchNorm(momentum=0.9)`: statistics in f32
-    over every axis but the channels, the variance biased and taken as
-    E[x^2] - E[x]^2 clamped at 0; y = (x - mean) * (rsqrt(var + eps) * w) + b
-    in f32, returned in x's dtype; running mean and variance updated in f32
-    with the BIASED variance at momentum 0.1 (Flax's 0.9 decay). Each call
-    updates them, so a module called twice in one forward (the ASM mask
-    head) updates twice, as the Flax module does. torch's own BatchNorm
-    updates with the unbiased variance. Eval mode is torch's (running
-    statistics), unchanged. State-dict names are torch's.
+    """Train mode as Flax's `nn.BatchNorm`: statistics in f32 (f64 for an
+    f64 input) over every axis but the channels, the variance biased and
+    taken as E[x^2] - E[x]^2 clamped at 0; y = (x - mean) * (rsqrt(var +
+    eps) * w) + b in that type, returned in x's dtype; running mean and
+    variance updated in their own type with the BIASED variance at the
+    module's momentum (0.1 unless given: Flax's 0.9 decay; BTS's decoder
+    0.01 with eps 1.1e-5). Each call updates them, so a module called
+    twice in one forward (the ASM mask head) updates twice, as the Flax
+    module does. torch's own BatchNorm updates with the unbiased variance.
+    Eval mode is torch's (running statistics), unchanged. State-dict names
+    are torch's.
 
     With a process group of several ranks (`parallel`), the statistics are
     the global batch's, as JAX's one program over the mesh takes them:
@@ -41,7 +43,7 @@ class _FlaxTrainBatchNorm:
         self._check_input_dim(x)
         red = (0,) + tuple(range(2, x.ndim))
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if parallel.world().size > 1:
             c = x.shape[1]
             count = xf.new_full((1,), xf.numel() // c)
@@ -55,14 +57,17 @@ class _FlaxTrainBatchNorm:
             self.running_mean.mul_(1.0 - m).add_(mean.detach().to(self.running_mean.dtype), alpha=m)
             self.running_var.mul_(1.0 - m).add_(var.detach().to(self.running_var.dtype), alpha=m)
             self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.float().reshape(shape)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.to(xf.dtype).reshape(shape)
         return y.to(x.dtype)
 
 
 class BatchNorm2d(_FlaxTrainBatchNorm, nn.BatchNorm2d):
-    def __init__(self, features: int):
-        super().__init__(features, eps=1e-5, momentum=0.1)
+    """`momentum` is torch's (the running statistics' weight of the new
+    batch): Flax's `momentum=m` is torch's 1 - m."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(features, eps=eps, momentum=momentum)
 
 
 class BatchNorm3d(_FlaxTrainBatchNorm, nn.BatchNorm3d):

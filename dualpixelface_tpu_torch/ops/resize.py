@@ -82,10 +82,18 @@ def upsample2d_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:
     return resize_linear(x, (h * factor, w * factor), (1, 2))
 
 
-def downsample2d_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """[B, H, W, C] nearest downsample by an integer factor."""
-    _, h, w, _ = x.shape
-    return resize_nearest(x, (h // factor, w // factor), (1, 2))
+def upsample2d_nearest(x: torch.Tensor, factor: int, axes=(1, 2)) -> torch.Tensor:
+    """[B, H, W, C] -> [B, fH, fW, C], torch 'nearest' (each pixel repeated
+    `factor` times); `axes=(2, 3)` for [B, C, H, W]."""
+    h, w = x.shape[axes[0]], x.shape[axes[1]]
+    return resize_nearest(x, (h * factor, w * factor), axes)
+
+
+def downsample2d_nearest(x: torch.Tensor, factor: int, axes=(1, 2)) -> torch.Tensor:
+    """[B, H, W, C] nearest downsample by an integer factor (source pixel
+    floor(dst * factor)); `axes=(2, 3)` for [B, C, H, W]."""
+    h, w = x.shape[axes[0]], x.shape[axes[1]]
+    return resize_nearest(x, (h // factor, w // factor), axes)
 
 
 def upsample3d_trilinear(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -1,10 +1,11 @@
-"""Where the cost-volume zoo's f32 time and memory go on the card.
+"""Where the zoo's f32 time and memory go on the card.
 
     python3 -m dualpixelface_tpu_torch.tools.profile_zoo [--model psmnet] [--iters 5] [--top 12]
 
-Run from the repository's root. For each of stereonet, psmnet and nnet (or
-`--model`), at `chip_smoke.py` phase 12's cell (each model's FaceDP run
-config, 768x576, f32, the seeded O(1) weights of `chip_smoke.zoo_state_dict`):
+Run from the repository's root. For each of stereonet, psmnet, nnet, dpnet
+and bts (or `--model`), at `chip_smoke.py` phase 12's cell (each model's
+FaceDP run config, 768x576, f32, the seeded O(1) weights of
+`chip_smoke.zoo_state_dict`, the request batches of `chip_smoke.zoo_batch`):
 
   * the serving forward (batch 4) and the train step (the run config's
     batch, Adam) timed through `profile_serving.timed` over `--iters`
@@ -16,9 +17,12 @@ config, 768x576, f32, the seeded O(1) weights of `chip_smoke.zoo_state_dict`):
   * at each setting: each top-level child module's device ms (CUDA events
     around its calls, summed; "outside" is the forward's rest: the volume,
     the soft-argmin, the resizes) and the most memory it held above its
-    start, in one forward, and the same for the children of the feature
-    tower; at exact f32, the forward's and the step's busy time and top
-    kernels by device time (`profile_serving.device_profile`).
+    start, in one forward, and the same for the children of the model's
+    `TOWER` (the cost-volume models' feature tower, BTS's decoder; dpnet's
+    stages are its top-level children); at exact f32, the forward's and the
+    step's busy time and top kernels by device time
+    (`profile_serving.device_profile`), whose names say which algorithm
+    cuDNN took.
 
 One JSON line a reading, after the card's name and power limit. Needs a GPU.
 """
@@ -32,6 +36,8 @@ import torch
 from dualpixelface_tpu_torch.tools.ddp_tolerance import _smoke
 
 SETTINGS = ("exact_f32", "exact_f32_autotuned", "tf32", "tf32", "exact_f32_autotuned", "exact_f32")
+TOWER = {"stereonet": "feature_extraction", "psmnet": "feature_extraction", "nnet": "feature_extraction",
+         "bts": "decoder", "dpnet": None}
 
 
 def set_precision(name: str) -> None:
@@ -93,7 +99,7 @@ def profile_model(model: str, iters: int, top: int, card: str) -> None:
     from dualpixelface_tpu_torch.losses import loss_selector
     from dualpixelface_tpu_torch.profile_serving import device_profile, timed
     from dualpixelface_tpu_torch.profile_train import train_batch
-    from dualpixelface_tpu_torch.serve import Predictor, bench_batch
+    from dualpixelface_tpu_torch.serve import Predictor
     from dualpixelface_tpu_torch.train.state import create_train_state
     from dualpixelface_tpu_torch.train.steps import make_train_step
 
@@ -101,7 +107,7 @@ def profile_model(model: str, iters: int, top: int, card: str) -> None:
     config = smoke.zoo_option(model)
     sd = smoke.zoo_state_dict(config)
     pred = Predictor(config, state_dict=sd, device="cuda", dtype=torch.float32)
-    batch = bench_batch(smoke.ZOO_EVAL_BATCH, smoke.H, smoke.W)
+    batch = smoke.zoo_batch(model, smoke.ZOO_EVAL_BATCH, smoke.H, smoke.W)
     state = create_train_state(config, steps_per_epoch=100, state_dict=sd, device="cuda")
     step = make_train_step(state.model, loss_selector(config), torch.float32)
     tbatch = train_batch(int(config.batch_size), smoke.H, smoke.W)
@@ -122,9 +128,9 @@ def profile_model(model: str, iters: int, top: int, card: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         pred(batch)
         peak = torch.cuda.max_memory_allocated() / 1e9
+        tower = TOWER[model] and child_breakdown(getattr(pred.model, TOWER[model]), lambda: pred(batch))
         print(json.dumps({"model": model, "precision": name, "serving_peak_gb": peak,
-                          **child_breakdown(pred.model, lambda: pred(batch)),
-                          "tower": child_breakdown(pred.model.feature_extraction, lambda: pred(batch)),
+                          **child_breakdown(pred.model, lambda: pred(batch)), "tower": tower,
                           "card": card}), flush=True)
     set_precision("exact_f32")
     for line in device_profile(lambda: pred(batch), reps=1, top=top):
@@ -137,7 +143,7 @@ def main() -> int:
     from dualpixelface_tpu_torch.tools import require_cuda
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("stereonet", "psmnet", "nnet"), default=None)
+    ap.add_argument("--model", choices=tuple(TOWER), default=None)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args()

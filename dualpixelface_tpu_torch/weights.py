@@ -8,14 +8,16 @@ numpy copy of the mapping in `tools/export_stereodpnet_checkpoint.py`), so
 a JAX-trained checkpoint loads into the port with `strict=True` (the ASM's
 PReLU of `asm_activation: "relu"`, which the exporter leaves out, is mapped
 to `cost_volume.attention_layer.prelu.weight`); for the zoo's stereonet,
-psmnet and nnet (`model=`), the port's own names, which follow the JAX
-tree, with Flax's automatic names (`Conv_0`, `ResidualBlock_3`,
-`BasicBlock_12`, ...) mapped in their call order. Flax conv
+psmnet, nnet, dpnet and BTS's decoder (`model=`), the port's own names,
+which follow the JAX tree, with Flax's automatic names (`Conv_0`,
+`ResidualBlock_3`, `BasicBlock_12`, `TorchBlock_2`, ...) mapped in their
+call order; for BTS's encoder, torchvision's names. Flax conv
 kernels [*k, I, O] become torch [O, I, *k]; transposed-conv kernels
 [*k, O, I] become torch ConvTranspose [I, O, *k].
 """
 from __future__ import annotations
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -78,11 +80,28 @@ class _Mapper:
         self.prelu(f"{fpath}/PReLU_2", f"{tname}.prelu.weight")
         self.convbn(f"{fpath}/conv4", f"{tname}.conv4.0")
         self.prelu(f"{fpath}/PReLU_3", f"{tname}.conv4.1.weight")
-        self.conv(f"{fpath}/conv5/Conv_0", f"{tname}.conv5.depthwise")
-        self.conv(f"{fpath}/conv5/Conv_1", f"{tname}.conv5.pointwise")
-        self.bn(f"{fpath}/conv5/BatchNorm_0", f"{tname}.conv5.bn")
-        self.prelu(f"{fpath}/conv5/PReLU_0", f"{tname}.conv5.prelu.weight")
+        self.dwsep(f"{fpath}/conv5", f"{tname}.conv5")
         self.conv(f"{fpath}/conv_skip", f"{tname}.conv_skip", bias=True)
+
+    def dwsep(self, fpath, tname):
+        """A depthwise-separable conv (`ops.blocks.DepthwiseSeparableConv`)."""
+        self.conv(f"{fpath}/Conv_0", f"{tname}.depthwise")
+        self.conv(f"{fpath}/Conv_1", f"{tname}.pointwise")
+        self.bn(f"{fpath}/BatchNorm_0", f"{tname}.bn")
+        self.prelu(f"{fpath}/PReLU_0", f"{tname}.prelu.weight")
+
+    def torchblock(self, fpath, tname):
+        """dpnet's TorchBlock: its conv or deconv, BatchNorm and PReLU where
+        the tree has them."""
+        p = self._get(self.params, fpath)
+        if "ConvTranspose_0" in p:
+            self.sd[f"{tname}.conv.weight"] = _f2t_conv(p["ConvTranspose_0"]["kernel"])
+        else:
+            self.conv(f"{fpath}/Conv_0", f"{tname}.conv")
+        if "BatchNorm_0" in p:
+            self.bn(f"{fpath}/BatchNorm_0", f"{tname}.bn")
+        if "PReLU_0" in p:
+            self.prelu(f"{fpath}/PReLU_0", f"{tname}.prelu.weight")
 
     def hourglass(self, fpath, tname):
         for cname in ("conv1", "conv3", "conv4"):
@@ -200,7 +219,104 @@ def _nnet(m: _Mapper) -> None:
             m.conv(f"{nm}/n_convs{i}", f"{nm}.n_convs.{i}")
 
 
-ZOO = {"stereonet": _stereonet, "psmnet": _psmnet, "nnet": _nnet}
+def _dpnet(m: _Mapper) -> None:
+    """Flax numbers an Encoder's TorchBlocks in call order: TorchBlock_0
+    the conv, _1 the 1x1 after the depthwise-separable conv, _2 the skip."""
+    m.torchblock("enc_layer1_1/TorchBlock_0", "enc_layer1_1.block")
+    for name in (n for n in m.params if n.startswith("enc_layer") and n != "enc_layer1_1"):
+        for i, part in enumerate(("block", "out", "skip")):
+            m.torchblock(f"{name}/TorchBlock_{i}", f"{name}.{part}")
+        m.dwsep(f"{name}/DWSep_0", f"{name}.dwsep")
+        m.prelu(f"{name}/PReLU_0", f"{name}.prelu.weight")
+    m.prelu("shared_prelu", "shared_prelu.weight")
+    for name in ("dec_layer4", "dec_layer3", "dec_layer2", "dec_layer1", "last_layer"):
+        m.torchblock(f"{name}/TorchBlock_0", f"{name}.deconv")
+        for i in range(3):
+            m.dwsep(f"{name}/DWSep_{i}", f"{name}.dwsep.{i}")
+        m.torchblock(f"{name}_b", f"{name}_b")
+    for i in range(1, 5):
+        m.dwsep(f"skip_layer{i}", f"skip_layer{i}")
+    for i in range(1, 6):
+        m.torchblock(f"conv_last_layer{i}", f"conv_last_layer{i}")
+
+
+_DENSE_LAYER = re.compile(r"denseblock(\d+)_layer(\d+)$")
+_TRANSITION = re.compile(r"transition(\d+)_(norm|conv)$")
+_BOTTLENECK = re.compile(r"layer(\d+)_(\d+)$")
+
+
+def _bts_encoder(m: _Mapper, f: str, t: str) -> None:
+    """A JAX `ResNetEncoder` tree under path `f` to torchvision's names
+    under `t` (the inverse of the JAX package's
+    `tools/convert_bts_encoder.py`)."""
+    enc = m._get(m.params, f) if f else m.params
+    f = f"{f}/" if f else ""
+    if "densenet" in enc:
+        for name in enc["densenet"]:
+            fn, tn = f"{f}densenet/{name}", f"{t}features"
+            if name == "conv0":
+                m.conv(fn, f"{tn}.conv0")
+            elif name in ("norm0", "norm5"):
+                m.bn(fn, f"{tn}.{name}")
+            elif _DENSE_LAYER.match(name):
+                b, layer = _DENSE_LAYER.match(name).groups()
+                for part in ("norm1", "norm2"):
+                    m.bn(f"{fn}/{part}", f"{tn}.denseblock{b}.denselayer{layer}.{part}")
+                for part in ("conv1", "conv2"):
+                    m.conv(f"{fn}/{part}", f"{tn}.denseblock{b}.denselayer{layer}.{part}")
+            else:
+                b, part = _TRANSITION.match(name).groups()
+                (m.bn if part == "norm" else m.conv)(fn, f"{tn}.transition{b}.{part}")
+        return
+    m.conv(f"{f}conv1", f"{t}conv1")
+    m.bn(f"{f}bn1", f"{t}bn1")
+    for name in (n for n in enc if _BOTTLENECK.match(n)):
+        layer, block = _BOTTLENECK.match(name).groups()
+        fn, tn = f"{f}{name}", f"{t}layer{layer}.{block}"
+        for i in (1, 2, 3):
+            m.conv(f"{fn}/conv{i}", f"{tn}.conv{i}")
+            m.bn(f"{fn}/bn{i}", f"{tn}.bn{i}")
+        if "down_conv" in enc[name]:
+            m.conv(f"{fn}/down_conv", f"{tn}.downsample.0")
+            m.bn(f"{fn}/down_bn", f"{tn}.downsample.1")
+
+
+def bts_encoder_state_dict(params, batch_stats) -> dict[str, np.ndarray]:
+    """A JAX BTS encoder's own (params, batch_stats), as
+    `tools/convert_bts_encoder.py` writes them, to the port encoder's
+    torchvision-named state_dict."""
+    m = _Mapper(params, batch_stats)
+    _bts_encoder(m, "", "")
+    return m.sd
+
+
+def _bts(m: _Mapper) -> None:
+    """The encoder to torchvision's names (`_bts_encoder`), the decoder
+    after the JAX tree: `Conv_<i>` of AtrousConv the 1x1 (`reduce`) then
+    the dilated 3x3, of Reduction1x1 its convs in call order, of Upconv its
+    conv."""
+    _bts_encoder(m, "encoder", "encoder.")
+    dec = m.params["decoder"]
+    for name, node in dec.items():
+        f, t = f"decoder/{name}", f"decoder.{name}"
+        if name.startswith("bn"):
+            m.bn(f, t)
+        elif name.startswith("upconv"):
+            m.conv(f"{f}/Conv_0", f"{t}.conv")
+        elif name.startswith("daspp_") and name != "daspp_conv":
+            m.conv(f"{f}/Conv_0", f"{t}.reduce")
+            m.conv(f"{f}/Conv_1", f"{t}.dilated")
+            for bn in ("first_bn", "mid_bn"):
+                if bn in node:
+                    m.bn(f"{f}/{bn}", f"{t}.{bn}")
+        elif name.startswith("reduc"):
+            for i in range(len(node)):
+                m.conv(f"{f}/Conv_{i}", f"{t}.convs.{i}")
+        else:
+            m.conv(f, t)
+
+
+ZOO = {"stereonet": _stereonet, "psmnet": _psmnet, "nnet": _nnet, "dpnet": _dpnet, "bts": _bts}
 
 
 def state_dict_from_jax(params, batch_stats, block_stack: int = 1, model: str = "stereodpnet") -> dict[str, np.ndarray]:

@@ -141,6 +141,29 @@ def test_batchnorm_statistics_are_the_global_batch(tmp_path, shape):
             assert _close(2 * g[key], ref[key], 1e-6), key
 
 
+def test_silog_is_the_global_batchs(tmp_path):
+    """silog is not linear in its masked means, so each rank takes the
+    global batch's (`losses.common.global_masked_means`): with rank 0's
+    mask holding 60% of its pixels and rank 1's all of them, each rank's
+    loss is one process's on the concatenated batch (1e-6), and each
+    rank's rows get twice one process's gradient (the step's ranks each
+    report the global loss, and their parameters' gradients are averaged
+    over the 2 ranks), to 1e-5 of its norm."""
+    rng = np.random.default_rng(11)
+    shape = (2, 12, 10)
+    mask = np.ones(shape, np.float32)
+    mask[0] = rng.uniform(size=shape[1:]) < 0.6
+    depth = rng.uniform(800, 1200, shape).astype(np.float32)
+    batch = {"pred": rng.uniform(700, 1500, (2, 1) + shape[1:]).astype(np.float32), "depth": depth * mask,
+             "mask": mask, "idepth": (1000 / depth).astype(np.float32),
+             "abvalue": np.tile(np.float32([[32.98, -26996.49]]), (2, 1))}
+    got = _spawn(tmp_path, ranks.silog_rank, batch)
+    ref = ranks.silog_rank(batch)  # this process is one rank of one
+    for g in got:
+        assert g["loss"] == pytest.approx(ref["loss"], rel=1e-6)
+    assert _close(np.concatenate([g["grad"] for g in got]) / 2, ref["grad"], 1e-5)
+
+
 # ------------------------------------------------------------ the step
 
 HW = 32

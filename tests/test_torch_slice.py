@@ -154,8 +154,8 @@ def test_offsets_only_on_request(jax_side):
 def test_port_imports_no_jax():
     """Importing every module of the port (the bench script, the metric
     packs, the config manager, the loaders and preprocessing, the trainer,
-    its checkpoints, the CLI, `parallel/` and the zoo's stereonet, psmnet
-    and nnet among them) leaves jax, flax,
+    its checkpoints, the CLI, `parallel/` and the zoo's stereonet, psmnet,
+    nnet, dpnet and BTS with its encoders and silog among them) leaves jax, flax,
     the JAX package and `tools/` out of sys.modules."""
     code = (
         "import pkgutil, sys, dualpixelface_tpu_torch as p\n"
@@ -168,7 +168,8 @@ def test_port_imports_no_jax():
         "    'data.preprocess.native', 'data.preprocess.preprocess', 'data.SyntheticDP.synthesis', 'data.SyntheticDP.loader',\n"
         "    'data.SyntheticDP.fixture', 'data.FaceDP.path_reader', 'data.FaceDP.loader', 'models.base', 'train.checkpoint',\n"
         "    'train.trainer', 'utils.file_manager', 'utils.profiling', 'utils.visualizer', 'main', 'parallel',\n"
-        "    'parallel.mesh', 'models.stereonet.mainmodel', 'models.psmnet.mainmodel', 'models.nnet.mainmodel')}\n"
+        "    'parallel.mesh', 'models.stereonet.mainmodel', 'models.psmnet.mainmodel', 'models.nnet.mainmodel',\n"
+        "    'models.dpnet.mainmodel', 'models.bts.mainmodel', 'models.bts.encoder', 'losses.silog')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )

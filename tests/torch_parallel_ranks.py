@@ -10,6 +10,7 @@ import torch
 from dualpixelface_tpu_torch import parallel
 from dualpixelface_tpu_torch.config import Configuration, load_config
 from dualpixelface_tpu_torch.losses import loss_selector
+from dualpixelface_tpu_torch.losses.silog import SilogLoss
 from dualpixelface_tpu_torch.ops.blocks import BatchNorm2d, BatchNorm3d
 from dualpixelface_tpu_torch.ops.precision import resolve_policy
 from dualpixelface_tpu_torch.train.state import create_train_state
@@ -53,6 +54,18 @@ def batchnorm_rank(x: np.ndarray, weights: np.ndarray, calls: int) -> dict:
     return {"y": y.detach().numpy(), "x_grad": xr.grad.numpy(), "running_mean": bn.running_mean.numpy(),
             "running_var": bn.running_var.numpy(), "weight_grad": bn.weight.grad.numpy(),
             "bias_grad": bn.bias.grad.numpy()}
+
+
+def silog_rank(batch: dict) -> dict:
+    """BTS's silog (target_type depth) of `batch["pred"]` on this rank's
+    rows, and its backward: the loss and the rows' gradient."""
+    two_threads()
+    rows = local_rows(batch)
+    pred = torch.tensor(rows.pop("pred"), requires_grad=True)
+    loss = SilogLoss(load_config("bts"))({"pred_depth": pred}, {k: torch.tensor(v) for k, v in rows.items()},
+                                         target_type="depth")["loss"]
+    loss.backward()
+    return {"loss": float(loss.detach()), "grad": pred.grad.numpy()}
 
 
 def train_step_rank(batch: dict, precision=32) -> dict:

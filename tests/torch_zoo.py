@@ -1,7 +1,8 @@
 """What the zoo's CPU test files share (`tests/test_torch_stereonet.py`,
-`test_torch_psmnet.py`, `test_torch_nnet.py`): the cost-volume ops, the
-eval forward, one f32 train step and `Trainer.fit` / `test`, each of the
-port against the JAX package on the same numpy inputs and weights.
+`test_torch_psmnet.py`, `test_torch_nnet.py`, `test_torch_dpnet.py`,
+`test_torch_bts.py`): the cost-volume ops, the eval forward, one f32 train
+step and `Trainer.fit` / `test`, each of the port against the JAX package
+on the same numpy inputs and weights.
 
 Weights: the JAX model's own variable tree (`init` under `eval_shape`),
 every leaf refilled from a seed (`fill`) so that activations stay O(1).
@@ -40,9 +41,16 @@ from dualpixelface_tpu_torch.train.trainer import Trainer
 from dualpixelface_tpu_torch.weights import state_dict_from_jax
 
 REPO = Path(__file__).resolve().parent.parent
-RUN_CONFIG = {"stereonet": "train_faceDP_stereonet", "psmnet": "train_faceDP_psmnet", "nnet": "train_faceDP_nnet"}
+RUN_CONFIG = {"stereonet": "train_faceDP_stereonet", "psmnet": "train_faceDP_psmnet", "nnet": "train_faceDP_nnet",
+              "dpnet": "train_faceDP_dpnet", "bts": "train_faceDP_bts"}
 HW = 64  # psmnet's and nnet's SPP pools at inplanes 8 (windows 16..2) fit its 16x16 features
+# dpnet's five heads land on the full resolution only for multiples of 96
+SIZE = {"dpnet": 96}
 B = 2
+
+
+def size_of(model: str) -> int:
+    return SIZE.get(model, HW)
 
 
 def options(model: str, over: dict):
@@ -78,14 +86,16 @@ def views_batch(views_seed: int, b: int = B, hw: int = HW) -> dict:
     return {**train_batch(b, hw, hw), **smooth_views(b, hw, hw, seed=views_seed)}
 
 
-def seeded_model(model: str, over: dict, batch_np: dict, seed: int):
+def seeded_model(model: str, over: dict, batch_np: dict, seed: int, adjust=None):
     """(JAX option, port option, JAX module, variables as numpy) with the
-    JAX tree refilled from `seed`."""
+    JAX tree refilled from `seed`, then passed through `adjust(variables,
+    port option)` where given."""
     jopt, popt = options(model, over)
     jm = jax_model_selector(jopt)
     batch = {k: jnp.asarray(v) for k, v in batch_np.items()}
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), batch, train=False))
-    return jopt, popt, jm, fill(shapes, np.random.default_rng(seed))
+    variables = fill(shapes, np.random.default_rng(seed))
+    return jopt, popt, jm, variables if adjust is None else adjust(variables, popt)
 
 
 def port_weights(model: str, variables) -> dict:
@@ -131,11 +141,11 @@ def check_volumes(kind: str) -> None:
 
 # ------------------------------------------------------------------ the eval
 
-def eval_pair(model: str, over: dict, seed: int = 11, views_seed: int = 3):
+def eval_pair(model: str, over: dict, seed: int = 11, views_seed: int = 3, adjust=None):
     """The JAX eval forward and the port's (`Predictor`, f32, CPU) on the
-    same seeded weights and batch."""
-    batch_np = views_batch(views_seed)
-    _, popt, jm, variables = seeded_model(model, over, batch_np, seed)
+    same seeded weights and batch, at the model's size."""
+    batch_np = views_batch(views_seed, hw=size_of(model))
+    _, popt, jm, variables = seeded_model(model, over, batch_np, seed, adjust)
     ref = jax.jit(lambda v, b: jm.apply(v, b, train=False))(
         jax.tree_util.tree_map(jnp.asarray, variables), {k: jnp.asarray(v) for k, v in batch_np.items()})
     ref = {k: None if v is None else np.asarray(v) for k, v in ref.items()}
@@ -177,12 +187,12 @@ def _capture_grads():
     )
 
 
-def jax_step(model: str, over: dict, views_seed: int, seed: int = 13):
-    """One JAX train step (f32, the run config's Adam) of batch 2 at 64x64:
-    (port option, weights before, batch, losses, {params, batch_stats,
-    grads} after)."""
-    batch_np = views_batch(views_seed)
-    jopt, popt, jm, init = seeded_model(model, over, batch_np, seed)
+def jax_step(model: str, over: dict, views_seed: int, seed: int = 13, adjust=None):
+    """One JAX train step (f32, the run config's Adam) of batch 2 at the
+    model's size: (port option, weights before, batch, losses, {params,
+    batch_stats, grads} after)."""
+    batch_np = views_batch(views_seed, hw=size_of(model))
+    jopt, popt, jm, init = seeded_model(model, over, batch_np, seed, adjust)
     tx = optax.chain(_capture_grads(), jax_optimizer_selector(jopt, 100))
     state = JaxTrainState.create(apply_fn=jm.apply, params=jax.tree_util.tree_map(jnp.asarray, init["params"]),
                                  batch_stats=jax.tree_util.tree_map(jnp.asarray, init["batch_stats"]), tx=tx)
@@ -264,12 +274,13 @@ def check_batch_stats(model: str, jstep, pstep) -> int:
 
 # ------------------------------------------------------------------ the trainer
 
-def fit_and_restore(tmp_path, model: str, over: dict):
+def fit_and_restore(tmp_path, model: str, over: dict, hw: int = 96, crop_factor: int = 32):
     """`Trainer.fit` (one epoch) then `test()` on the CPU, as
     tests/test_trainer_zoo.py sets the JAX trainer up: the run config
     train_synthetic_stereonet with `model_name` set, batch 4, SyntheticDP at
-    96x96 (8 train, 4 test samples), crop factor 32, `use_normal` for nnet;
-    then a fresh trainer restoring the epoch's checkpoint in test mode.
+    hw x hw (8 train, 4 test samples; 96 unless given), crop factor 32
+    unless given, `use_normal` for nnet; then a fresh trainer restoring the
+    epoch's checkpoint in test mode.
     Returns (train records, test records, checkpoints, first tables,
     restored tables)."""
     root = tmp_path / "root"
@@ -279,8 +290,8 @@ def fit_and_restore(tmp_path, model: str, over: dict):
         cfg = Configuration("train_synthetic_stereonet", workspace=workspace, root=root, load_model=load_model,
                             overrides={"model_name": model, "mode": mode, "epoch": 1, "batch_size": 4, "workers": 0,
                                        "use_normal": model == "nnet"})
-        cfg.data["dataset"].update(height=96, width=96, train_samples=8, test_samples=4)
-        cfg.data["crop_aug"]["soft_crop"]["crop_factor"] = 32
+        cfg.data["dataset"].update(height=hw, width=hw, train_samples=8, test_samples=4)
+        cfg.data["crop_aug"]["soft_crop"]["crop_factor"] = crop_factor
         cfg.data["model"].update(over)
         return cfg.get_config()
 
