@@ -101,3 +101,36 @@ def write_fixture_tree(
                 json.dump(info, f)
 
     return root
+
+
+# The multi-view training run (the overrides of tests/test_multiview.py on
+# `train_faceDP_dpnet`): dpnet's `config_multi`, the reference views' raw
+# centre images, smoothL1 + the folded loss.
+MULTIVIEW_RUN = {"model_config": "config_multi", "use_multi": True, "use_raw": True, "select_view": [1, 2, 3]}
+MULTIVIEW_LOSSES = {"loss_type": ["smoothL1", "folded"], "lambdas": [1.0, 0.1]}
+
+
+def write_multiview_run(root: str | Path, fixture: str | Path, name: str = "train_faceDP_dpnet_multi",
+                        overrides: dict | None = None) -> Path:
+    """Write the multi-view training run over the FaceDP tree `fixture`
+    under `root`: `configs/<name>.json` (the committed `train_faceDP_dpnet`
+    with MULTIVIEW_RUN, `multi_view.use_center_img` and `overrides`), and
+    beside it the model config (`config_multi` with MULTIVIEW_LOSSES) and
+    the dataset config (FaceDP's, its path the fixture), which the run
+    config names by absolute path. A run config sets no model key, so the
+    losses come in through a model config of their own. Returns the run
+    config's path (for `--config`)."""
+    from dualpixelface_tpu_torch.config.manager import PACKAGE_ROOT as package, REPO_ROOT as repo
+
+    root = Path(root)
+    model = json.loads((package / "models" / "dpnet" / "config_multi.json").read_text())
+    (root / "configs").mkdir(parents=True, exist_ok=True)
+    (root / "dpnet_multi.json").write_text(json.dumps({**model, **MULTIVIEW_LOSSES}))
+    data = json.loads((package / "data" / "FaceDP" / "config.json").read_text())
+    (root / "facedp.json").write_text(json.dumps({**data, "path": str(fixture)}))
+    run = json.loads((repo / "configs" / "train_faceDP_dpnet.json").read_text())
+    run.update(MULTIVIEW_RUN, model_config=str(root / "dpnet_multi"), dataset_config=str(root / "facedp"),
+               multi_view={**run["multi_view"], "use_center_img": True}, **(overrides or {}))
+    path = root / "configs" / f"{name}.json"
+    path.write_text(json.dumps(run))
+    return path

@@ -5,7 +5,8 @@ Each loss module registers itself by name with `register_loss`;
 `option.model.loss_type`, weights them by `option.model.lambdas` into
 `final_loss`, and returns each as `<name>_loss`, with `abvalue` passed
 through from the depth loss. Ported: `smoothL1` and `cosine`, the losses of
-the stereodpnet_plus train path, and `silog`, BTS's.
+the stereodpnet_plus train path, `silog`, BTS's, and `folded`, the
+multi-view photometric loss of dpnet's `config_multi` runs.
 """
 from __future__ import annotations
 
@@ -60,4 +61,4 @@ def loss_selector(option) -> LossBank:
 
 
 # self-registration imports (keep at bottom)
-from dualpixelface_tpu_torch.losses import cosine, silog, smoothl1  # noqa: E402,F401
+from dualpixelface_tpu_torch.losses import cosine, folded, silog, smoothl1  # noqa: E402,F401

@@ -88,19 +88,55 @@ def smooth_views(b: int, h: int, w: int, seed: int, sigma: float = 2.0, gain: fl
     well conditioned on such views, where white-noise views make its f32
     gradient jump with rounding."""
     rng = np.random.default_rng(seed)
+    return {name: (gain * _blur(rng.standard_normal((b, h, w, 3)), sigma)).astype(np.float32)
+            for name in ("left", "right", "center")}
+
+
+def _blur(x: np.ndarray, sigma: float) -> np.ndarray:
+    """x [..., H, W, C] blurred along H and W by a Gaussian of `sigma`
+    pixels (radius 4 sigma, mirrored edges)."""
     r = int(4 * sigma + 0.5)
     k = np.exp(-0.5 * (np.arange(-r, r + 1) / sigma) ** 2)
     k /= k.sum()
-    views = {}
-    for name in ("left", "right", "center"):
-        x = rng.standard_normal((b, h, w, 3))
-        for axis in (1, 2):
-            pad = [(0, 0)] * 4
-            pad[axis] = (r, r)
-            xp = np.pad(x, pad, mode="symmetric")
-            x = sum(k[j] * np.take(xp, np.arange(j, j + x.shape[axis]), axis=axis) for j in range(2 * r + 1))
-        views[name] = (gain * x).astype(np.float32)
-    return views
+    for axis in (x.ndim - 3, x.ndim - 2):
+        pad = [(0, 0)] * x.ndim
+        pad[axis] = (r, r)
+        xp = np.pad(x, pad, mode="symmetric")
+        x = sum(k[j] * np.take(xp, np.arange(j, j + x.shape[axis]), axis=axis) for j in range(2 * r + 1))
+    return x
+
+
+def multiview_keys(rng, b: int, h: int, w: int, n: int = 3, depth: float = 1000.0, pad: int = 8) -> dict:
+    """The FaceDP multi-view keys the folded loss reads, for a prediction of
+    h x w at depths about `depth`, with a geometry whose warps move the
+    pixels by a few pixels (some out of a reference view): the target's raw
+    centre image and the references' ("raw_center", "centers") of
+    (h + pad) x (w + pad), smooth texture in about [0, 1]; sub-pixel crop
+    offsets "coords"; the target's "K" (focal 60 px, its centre shifted by
+    the crop as the loader shifts it) and "P" (identity); each reference's
+    "Ks" and "Ps": a rotation of up to 0.03 rad about y and about x, a
+    translation of up to 0.08 `depth` in x and 0.05 `depth` in y."""
+    rh, rw = h + pad, w + pad
+    coords = rng.uniform(0.0, pad / 2, (b, 2)).astype(np.float32)
+    f = 60.0
+    k = np.zeros((b, 3, 3), np.float32)
+    k[:, 0, 0] = k[:, 1, 1] = f
+    k[:, 0, 2] = rw / 2 - coords[:, 0]
+    k[:, 1, 2] = rh / 2 - coords[:, 1]
+    k[:, 2, 2] = 1.0
+    ks = np.tile(np.array([[f, 0, rw / 2], [0, f, rh / 2], [0, 0, 1]], np.float32), (b, n, 1, 1))
+    ps = np.tile(np.eye(4, dtype=np.float32), (b, n, 1, 1))
+    for i in range(b):
+        for j in range(n):
+            ay, ax = rng.uniform(-0.03, 0.03, 2)
+            ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0], [-np.sin(ay), 0, np.cos(ay)]])
+            rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)], [0, np.sin(ax), np.cos(ax)]])
+            ps[i, j, :3, :3] = ry @ rx
+            ps[i, j, :3, 3] = [rng.uniform(-0.08, 0.08) * depth, rng.uniform(-0.05, 0.05) * depth, 0.0]
+    images = 0.5 + 2.0 * _blur(rng.standard_normal((b, n + 1, rh, rw, 3)), 1.5)
+    return {"coords": coords, "raw_center": images[:, 0].astype(np.float32),
+            "centers": images[:, 1:].astype(np.float32), "K": k,
+            "P": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)), "Ks": ks, "Ps": ps}
 
 
 def phase_times(step, state, batch) -> dict:

@@ -11,7 +11,8 @@ to `cost_volume.attention_layer.prelu.weight`); for the zoo's stereonet,
 psmnet, nnet, dpnet and BTS's decoder (`model=`), the port's own names,
 which follow the JAX tree, with Flax's automatic names (`Conv_0`,
 `ResidualBlock_3`, `BasicBlock_12`, `TorchBlock_2`, ...) mapped in their
-call order; for BTS's encoder, torchvision's names. Flax conv
+call order; for BTS's encoder, torchvision's names; for the face parser
+(`face_seg`), the reference's; for `DeformConvPack2D`, torch's. Flax conv
 kernels [*k, I, O] become torch [O, I, *k]; transposed-conv kernels
 [*k, O, I] become torch ConvTranspose [I, O, *k].
 """
@@ -316,14 +317,59 @@ def _bts(m: _Mapper) -> None:
             m.conv(f, t)
 
 
-ZOO = {"stereonet": _stereonet, "psmnet": _psmnet, "nnet": _nnet, "dpnet": _dpnet, "bts": _bts}
+def _face_seg(m: _Mapper) -> None:
+    """BiSeNet to the reference's names (the inverse of the JAX package's
+    `tools/convert_face_seg_weights.py`): Flax's ConvBNReLU {Conv_0,
+    BatchNorm_0} is {conv, bn}; a ResNet18Block's Conv_0/1/2 and
+    BatchNorm_0/1/2 are conv1, conv2, downsample.0 and bn1, bn2,
+    downsample.1, its blocks ResNet18Block_{2l + b} layer{l + 1}.{b}."""
+
+    def convbnrelu(f, t):
+        m.conv(f"{f}/Conv_0", f"{t}.conv")
+        m.bn(f"{f}/BatchNorm_0", f"{t}.bn")
+
+    m.conv("resnet/Conv_0", "cp.resnet.conv1")
+    m.bn("resnet/BatchNorm_0", "cp.resnet.bn1")
+    for i in range(8):
+        f, t = f"resnet/ResNet18Block_{i}", f"cp.resnet.layer{i // 2 + 1}.{i % 2}"
+        for j, (conv, bn) in enumerate((("conv1", "bn1"), ("conv2", "bn2"), ("downsample.0", "downsample.1"))):
+            if f"Conv_{j}" in m.params["resnet"][f"ResNet18Block_{i}"]:
+                m.conv(f"{f}/Conv_{j}", f"{t}.{conv}")
+                m.bn(f"{f}/BatchNorm_{j}", f"{t}.{bn}")
+    for name in ("conv_avg", "conv_head16", "conv_head32"):
+        convbnrelu(name, f"cp.{name}")
+    for name in ("arm16", "arm32"):
+        convbnrelu(f"{name}/ConvBNReLU_0", f"cp.{name}.conv")
+        m.conv(f"{name}/Conv_0", f"cp.{name}.conv_atten")
+        m.bn(f"{name}/BatchNorm_0", f"cp.{name}.bn_atten")
+    convbnrelu("ffm/ConvBNReLU_0", "ffm.convblk")
+    m.conv("ffm/Conv_0", "ffm.conv1")
+    m.conv("ffm/Conv_1", "ffm.conv2")
+    for name in ("conv_out", "conv_out16", "conv_out32"):
+        convbnrelu(f"{name}/ConvBNReLU_0", f"{name}.conv")
+        m.conv(f"{name}/Conv_0", f"{name}.conv_out")
+
+
+def _deform_conv2d(m: _Mapper) -> None:
+    """`DeformConvPack2D`: weight [KH, KW, Cin, Cout] to [Cout, Cin, KH,
+    KW], the bias where the module has one, and conv_offset."""
+    m.sd["weight"] = _f2t_conv(m.params["weight"])
+    if "bias" in m.params:
+        m.sd["bias"] = np.asarray(m.params["bias"])
+    m.conv("conv_offset", "conv_offset", bias=True)
+
+
+ZOO = {"stereonet": _stereonet, "psmnet": _psmnet, "nnet": _nnet, "dpnet": _dpnet, "bts": _bts,
+       "face_seg": _face_seg, "deform_conv2d": _deform_conv2d}
 
 
 def state_dict_from_jax(params, batch_stats, block_stack: int = 1, model: str = "stereodpnet") -> dict[str, np.ndarray]:
     """Flax (params, batch_stats) of `model` -> the port's state_dict (numpy
     arrays). StereoDPNet and StereoDPNet+ (one tree): key for key what the
     JAX package's exporter emits, the reference torch names. The zoo
-    models (`ZOO`): the port's names, which follow the JAX tree."""
+    models (`ZOO`): the port's names, which follow the JAX tree; "face_seg"
+    (BiSeNet) the reference's names, "deform_conv2d" (`DeformConvPack2D`,
+    `batch_stats` unused) torch's."""
     m = _Mapper(params, batch_stats)
     if model in ZOO:
         ZOO[model](m)

@@ -155,8 +155,9 @@ def test_port_imports_no_jax():
     """Importing every module of the port (the bench script, the metric
     packs, the config manager, the loaders and preprocessing, the trainer,
     its checkpoints, the CLI, `parallel/` and the zoo's stereonet, psmnet,
-    nnet, dpnet and BTS with its encoders and silog among them) leaves jax, flax,
-    the JAX package and `tools/` out of sys.modules."""
+    nnet, dpnet and BTS with its encoders and silog, the folded loss and its
+    grid sampling, the face parser and the 2-D deformable conv among them)
+    leaves jax, flax, the JAX package and `tools/` out of sys.modules."""
     code = (
         "import pkgutil, sys, dualpixelface_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
@@ -169,7 +170,9 @@ def test_port_imports_no_jax():
         "    'data.SyntheticDP.fixture', 'data.FaceDP.path_reader', 'data.FaceDP.loader', 'models.base', 'train.checkpoint',\n"
         "    'train.trainer', 'utils.file_manager', 'utils.profiling', 'utils.visualizer', 'main', 'parallel',\n"
         "    'parallel.mesh', 'models.stereonet.mainmodel', 'models.psmnet.mainmodel', 'models.nnet.mainmodel',\n"
-        "    'models.dpnet.mainmodel', 'models.bts.mainmodel', 'models.bts.encoder', 'losses.silog')}\n"
+        "    'models.dpnet.mainmodel', 'models.bts.mainmodel', 'models.bts.encoder', 'losses.silog',\n"
+        "    'ops.resample', 'losses.folded', 'models.face_seg', 'models.face_seg.model', 'models.face_seg.evaluate',\n"
+        "    'ops.deform_conv2d')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )

@@ -10,6 +10,7 @@ import torch
 from dualpixelface_tpu_torch import parallel
 from dualpixelface_tpu_torch.config import Configuration, load_config
 from dualpixelface_tpu_torch.losses import loss_selector
+from dualpixelface_tpu_torch.losses.folded import FoldedLoss
 from dualpixelface_tpu_torch.losses.silog import SilogLoss
 from dualpixelface_tpu_torch.ops.blocks import BatchNorm2d, BatchNorm3d
 from dualpixelface_tpu_torch.ops.precision import resolve_policy
@@ -64,6 +65,18 @@ def silog_rank(batch: dict) -> dict:
     pred = torch.tensor(rows.pop("pred"), requires_grad=True)
     loss = SilogLoss(load_config("bts"))({"pred_depth": pred}, {k: torch.tensor(v) for k, v in rows.items()},
                                          target_type="depth")["loss"]
+    loss.backward()
+    return {"loss": float(loss.detach()), "grad": pred.grad.numpy()}
+
+
+def folded_rank(batch: dict) -> dict:
+    """dpnet's `config_multi` folded loss of `batch["pred"]` on this rank's
+    rows, and its backward: the loss and the rows' gradient."""
+    two_threads()
+    cfg = Configuration("train_faceDP_dpnet", make_workspace=False, overrides={"model_config": "config_multi"})
+    rows = local_rows(batch)
+    pred = torch.tensor(rows.pop("pred"), requires_grad=True)
+    loss = FoldedLoss(cfg.get_config())({"pred_depth": pred}, {k: torch.tensor(v) for k, v in rows.items()})["loss"]
     loss.backward()
     return {"loss": float(loss.detach()), "grad": pred.grad.numpy()}
 

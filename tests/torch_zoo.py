@@ -53,12 +53,13 @@ def size_of(model: str) -> int:
     return SIZE.get(model, HW)
 
 
-def options(model: str, over: dict):
+def options(model: str, over: dict, run_over: dict | None = None):
     """The JAX and the port's merged run config of `model`'s FaceDP run
-    config (flip_lr true), the model keys overridden by `over`."""
+    config (flip_lr true), its run keys overridden by `run_over` and its
+    model keys by `over`."""
     out = []
     for cls in (JaxConfiguration, Configuration):
-        cfg = cls(RUN_CONFIG[model], make_workspace=False)
+        cfg = cls(RUN_CONFIG[model], make_workspace=False, overrides=run_over)
         cfg.data["model"].update(over)
         out.append(cfg.get_config())
     return out
@@ -86,11 +87,11 @@ def views_batch(views_seed: int, b: int = B, hw: int = HW) -> dict:
     return {**train_batch(b, hw, hw), **smooth_views(b, hw, hw, seed=views_seed)}
 
 
-def seeded_model(model: str, over: dict, batch_np: dict, seed: int, adjust=None):
+def seeded_model(model: str, over: dict, batch_np: dict, seed: int, adjust=None, run_over=None):
     """(JAX option, port option, JAX module, variables as numpy) with the
     JAX tree refilled from `seed`, then passed through `adjust(variables,
     port option)` where given."""
-    jopt, popt = options(model, over)
+    jopt, popt = options(model, over, run_over)
     jm = jax_model_selector(jopt)
     batch = {k: jnp.asarray(v) for k, v in batch_np.items()}
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), batch, train=False))
@@ -187,12 +188,15 @@ def _capture_grads():
     )
 
 
-def jax_step(model: str, over: dict, views_seed: int, seed: int = 13, adjust=None):
+def jax_step(model: str, over: dict, views_seed: int, seed: int = 13, adjust=None, run_over=None, extend=None):
     """One JAX train step (f32, the run config's Adam) of batch 2 at the
     model's size: (port option, weights before, batch, losses, {params,
-    batch_stats, grads} after)."""
+    batch_stats, grads} after). `run_over` overrides run keys; `extend(batch)`
+    gives keys to add to the batch."""
     batch_np = views_batch(views_seed, hw=size_of(model))
-    jopt, popt, jm, init = seeded_model(model, over, batch_np, seed, adjust)
+    if extend is not None:
+        batch_np.update(extend(batch_np))
+    jopt, popt, jm, init = seeded_model(model, over, batch_np, seed, adjust, run_over)
     tx = optax.chain(_capture_grads(), jax_optimizer_selector(jopt, 100))
     state = JaxTrainState.create(apply_fn=jm.apply, params=jax.tree_util.tree_map(jnp.asarray, init["params"]),
                                  batch_stats=jax.tree_util.tree_map(jnp.asarray, init["batch_stats"]), tx=tx)
