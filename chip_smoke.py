@@ -9,20 +9,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (one nvcc per source, all at once), print the build seconds and each
      entry function's registers, shared memory and spill bytes from the
      build log; a tensor-core kernel (the bf16 routes of K1, of K5 and T1,
-     of K2 and of T4) or an instantiation of K3 or K4 (each dtype, D = 1..16)
-     that spills, or one missing from the log, fails;
+     of K2 and of T4, the 3xTF32 f32 routes of K5 and K2) or an
+     instantiation of K3 or K4 (each dtype, D = 1..16) that spills, or one
+     missing from the log, fails;
   3. check each forward kernel (K1, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
-     in bf16 and f32; each K1 check names its route, the
-     tensor cores for bf16 and the SIMT kernel for f32; then K1 (both
+     in bf16 and f32; each check names its route (K1: the tensor cores for
+     bf16, the SIMT kernel for f32; K5: bf16 `wgmma` for bf16, 3xTF32
+     `wgmma` for f32); then K1 (both
      apertures) and K5 in f32 at a data-parallel rank's batch 2 (phase 11);
      then K1 and K5 in f32 at the trainer path's batch 4 (phase 10),
      checked and timed beside their plain versions (K5 also beside
      cuDNN's exact f32 conv3d): the f32 routes' yardstick;
   3b. the same for the backward kernels at the train path's shapes: K2 (all
      four gradients, both apertures, a quarter of the offsets whole numbers
-     and some on the window bound; each check names its route, the
-     tensor cores for bf16 and the SIMT kernel for f32), then K2's f32
+     and some on the window bound; each check names its route, bf16
+     `wgmma` for bf16 and 3xTF32 `wgmma` for f32), then K2's f32
      route at the trainer path's batch 4 (phase 10), against its plain
      version on two batch-2 halves, and timed there;
   3c. K1 (Cin 35 and 64, both apertures), K5 (Cin 35 and 64), T1 (Co 32
@@ -166,7 +168,10 @@ phase 12's per model (the five), 12a and 12b; `launches_last_modules`
 phase 13's (13a, 13c, 13d), all 0; K1, K2 and K5 also an `f32_route`
 object: their f32 route at the trainer path's batch 4, ms, device ms,
 plain ms, library ms (K5: cuDNN's exact f32), the bound with every
-operation on the CUDA cores, launches per trainer step;
+operation on the CUDA cores (`bound_ms`) and the split bound with the
+contractions as 3xTF32 on the tensor cores and the rest on the CUDA cores
+(`split_bound_ms`; K1's route is still SIMT: its target), launches per
+trainer step;
 T1-T4 the tools' measurements in phase 9, whose T rows sum the runs' times
 and bounds; K1-K5 also carry `device_ms`, phases 4-4c's time on the device
 alone); the last line is {"ok": true, "device": {...}}.
@@ -300,13 +305,16 @@ def print_build_report(report: dict) -> None:
         return fn(*args)
 
     # (library, kernel, template argument) of each tensor-core instantiation
-    dynamic = {("conv3d_dslice", "conv3d_tc_kernel", 88): smem("conv3d_dslice", "dpf_conv3d_k3_smem_bytes")}
+    dynamic = {("conv3d_dslice", "conv3d_tc_kernel", 88): smem("conv3d_dslice", "dpf_conv3d_k3_smem_bytes"),
+               ("conv3d_dslice", "conv3d_3xtf32_kernel", 88): smem("conv3d_dslice", "dpf_conv3d_k3_3xtf32_smem_bytes")}
     dynamic.update({("conv3d_dslice_v2", "conv3d_tc_kernel", co):
                     smem("conv3d_dslice_v2", "dpf_conv3d_k3_affine_smem_bytes", co) for co in (32, 64)})
     dynamic.update({("prims_dot", "dot_bf16_kernel", mt): smem("prims_dot", "dpf_batched_dot_smem_bytes", mt)
                     for mt in (1, 2)})
     dynamic.update({("deform_conv3d_bwd", "deform_bwd_tc_kernel", cp):
                     smem("deform_conv3d_bwd", "dpf_deform_conv3d_bwd_tc_smem_bytes") for cp in (40, 64)})
+    dynamic.update({("deform_conv3d_bwd", "deform_bwd_3xtf32_kernel", cp):
+                    smem("deform_conv3d_bwd", "dpf_deform_conv3d_bwd_3xtf32_smem_bytes", cp) for cp in (40, 64)})
     dynamic.update({("deform_conv3d", "deform_fwd_tc_kernel", cp):
                     smem("deform_conv3d", "dpf_deform_conv3d_tc_smem_bytes", cp) for cp in (40, 64)})
     # K3's and K4's instantiations: each dtype and D = 1..16; none may spill
@@ -323,7 +331,8 @@ def print_build_report(report: dict) -> None:
                     line += f", dynamic smem {smem('fused_softargmin_bwd', 'dpf_fused_softargmin_bwd_smem_bytes', key[2])} bytes"
                 if f.get("spill_stores") != 0 or f.get("spill_loads") != 0:
                     fail(f"the K3/K4 kernel {f['function']} spills: {f}")
-            if m := re.search(r"(conv3d_tc_kernel|dot_bf16_kernel|deform_bwd_tc_kernel|deform_fwd_tc_kernel)ILi(\d+)E", f["function"]):
+            if m := re.search(r"(conv3d_tc_kernel|conv3d_3xtf32_kernel|dot_bf16_kernel|deform_bwd_tc_kernel|"
+                              r"deform_bwd_3xtf32_kernel|deform_fwd_tc_kernel)ILi(\d+)E", f["function"]):
                 key = (name, m.group(1), int(m.group(2)))
                 seen.add(key)
                 line += f", dynamic smem {dynamic[key]} bytes ({key[1]}<{key[2]}>)"
@@ -402,7 +411,7 @@ def tf32_flags(torch) -> tuple:
 
 def check_and_time_kernels(torch):
     from dualpixelface_tpu_torch.tools import cuda_ms, cudnn_conv3d_calls, device_ms
-    from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
+    from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain, route
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_fused, deform_conv3d_plain, fwd_route
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -420,7 +429,7 @@ def check_and_time_kernels(torch):
                             deform_conv3d_plain(x, off, w, bias, aperture=aperture), dname)
                 if dtype == bf16 and aperture:
                     err["K1"] = max(err["K1"], e)
-            e = compare(f"K5 conv3d_dslice Cin={cin}", conv3d_dslice(x, w_off, b_off),
+            e = compare(f"K5 conv3d_dslice [{route(dtype)}] Cin={cin}", conv3d_dslice(x, w_off, b_off),
                         conv3d_dslice_plain(x, w_off, b_off), dname)
             if dtype == bf16:
                 err["K5"] = max(err["K5"], e)
@@ -470,12 +479,12 @@ def check_and_time_kernels(torch):
             compare(f"K1 deform_conv3d_fused [{fwd_route(f32)}] B={TB} Cin={cin} aperture={aperture} (a rank's)",
                     deform_conv3d_fused(x, off, w, bias, aperture=aperture),
                     deform_conv3d_plain(x, off, w, bias, aperture=aperture), "float32")
-        compare(f"K5 conv3d_dslice B={TB} Cin={cin} (a rank's)", conv3d_dslice(x, w_off, b_off),
+        compare(f"K5 conv3d_dslice [{route(f32)}] B={TB} Cin={cin} (a rank's)", conv3d_dslice(x, w_off, b_off),
                 conv3d_dslice_plain(x, w_off, b_off), "float32")
 
     # the f32 routes at the trainer path's batch 4 (phase 10, which every
-    # committed f32 run trains on), checked and timed: the yardstick of
-    # their redesign. All their work runs on the CUDA cores (`f32_work`).
+    # committed f32 run trains on), checked and timed (`f32_work`): K1 on
+    # the CUDA cores, K5 in 3xTF32 on the tensor cores.
     m = math.prod(TRAINER_ANM_SHAPE)
     for k in ("K1", "K5"):
         timing[k]["f32_route"] = f32_work()
@@ -484,13 +493,15 @@ def check_and_time_kernels(torch):
         compare(f"K1 deform_conv3d_fused [{fwd_route(f32)}] B={TRAINER_BATCH} Cin={cin} aperture=True (the trainer's)",
                 deform_conv3d_fused(x, off, w, bias, aperture=True),
                 deform_conv3d_plain(x, off, w, bias, aperture=True), "float32")
-        compare(f"K5 conv3d_dslice B={TRAINER_BATCH} Cin={cin} (the trainer's)", conv3d_dslice(x, w_off, b_off),
+        compare(f"K5 conv3d_dslice [{route(f32)}] B={TRAINER_BATCH} Cin={cin} (the trainer's)",
+                conv3d_dslice(x, w_off, b_off),
                 conv3d_dslice_plain(x, w_off, b_off), "float32")
         k1 = timing["K1"]["f32_route"]
         k1["ms"] += cuda_ms(lambda: deform_conv3d_fused(x, off, w, bias, aperture=True), 5)
         k1["device_ms"] += device_ms(lambda: deform_conv3d_fused(x, off, w, bias, aperture=True), 5)
         k1["plain_ms"] += cuda_ms(lambda: deform_conv3d_plain(x, off, w, bias, aperture=True), 1)
-        k1["ops"] += (2.0 * COUT + K1_F32_OPS) * m * 27 * cin
+        k1["flops_mma"] += 2.0 * COUT * m * 27 * cin
+        k1["ops_f32"] += K1_F32_OPS * m * 27 * cin
         k1["bytes"] += sum(t.numel() * t.element_size() for t in (x, off, w, bias)) + m * COUT * 4
         k5 = timing["K5"]["f32_route"]
         k5["ms"] += cuda_ms(lambda: conv3d_dslice(x, w_off, b_off), 5)
@@ -499,7 +510,7 @@ def check_and_time_kernels(torch):
         # cuDNN's exact f32 (TF32 is off in this scope), the faster layout
         k5["library_ms"] = (k5["library_ms"] or 0.0) + min(
             cuda_ms(call, 5) for call in cudnn_conv3d_calls(x, w_off, b_off).values())
-        k5["ops"] += 2.0 * m * 27 * cin * 81
+        k5["flops_mma"] += 2.0 * m * 27 * cin * 81
         k5["bytes"] += sum(t.numel() * t.element_size() for t in (x, w_off, b_off)) + m * 81 * 4
         torch.cuda.empty_cache()
     return err, timing
@@ -507,9 +518,10 @@ def check_and_time_kernels(torch):
 
 def f32_work() -> dict:
     """A kernel's f32-route timing at the trainer path's shapes: ms, device
-    ms, plain ms, library ms, and its least work: operations (every one on
-    the CUDA cores, the contractions' FMAs as 2) and bytes."""
-    return {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": None, "ops": 0.0, "bytes": 0.0}
+    ms, plain ms, library ms, and its least work: the contractions' f32
+    operations (an FMA as 2), the other f32 operations, and bytes."""
+    return {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": None, "flops_mma": 0.0, "ops_f32": 0.0,
+            "bytes": 0.0}
 
 
 def check_and_time_backward_kernels(torch, err, timing):
@@ -588,7 +600,8 @@ def check_and_time_backward_kernels(torch, err, timing):
                 torch.cuda.empty_cache()
 
         k2["plain_ms"] += cuda_ms(plain_halves, 1)
-        k2["ops"] += (2 * 2.0 * COUT + K2_F32_OPS) * m * 27 * cin
+        k2["flops_mma"] += 2 * 2.0 * COUT * m * 27 * cin
+        k2["ops_f32"] += K2_F32_OPS * m * 27 * cin
         k2["bytes"] += sum(t.numel() * t.element_size() for t in (x, off, w)) * 2 + g.numel() * g.element_size()
         torch.cuda.empty_cache()
 
@@ -681,11 +694,11 @@ def check_and_time_softargmin(torch, err, timing):
 
 def check_edge_shapes(torch):
     """Phase 3c: K1, K5, T1 and K2 at the ragged `EDGE_SHAPES`, Cin 35 and
-    64, bf16 and f32: K1 (both apertures, each route) and K5 within
+    64, bf16 and f32: K1 (both apertures, each route) and K5 (each route) within
     `REL_TOL`, T1 (Co 32 and 64, without and with the folded BatchNorm and
     ReLU) within `bench_dslice_fold.excess_error`'s allowance, K2 (both
     apertures, each route) within `BWD_TOL`."""
-    from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain
+    from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain, route
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import COS
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
         bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain, deform_conv3d_fused, deform_conv3d_plain, fwd_route)
@@ -696,7 +709,7 @@ def check_edge_shapes(torch):
         for shape in EDGE_SHAPES:
             for cin in CINS:
                 x, _, _, _, w_off, b_off = kernel_inputs(torch, gen, cin, dtype, shape)
-                compare(f"K5 conv3d_dslice {shape + (cin,)}", conv3d_dslice(x, w_off, b_off),
+                compare(f"K5 conv3d_dslice [{route(dtype)}] {shape + (cin,)}", conv3d_dslice(x, w_off, b_off),
                         conv3d_dslice_plain(x, w_off, b_off), dname)
                 for co in COS:
                     for r in fold.check(fold.site_inputs(shape + (cin,), co, gen, dtype)):
@@ -1070,8 +1083,9 @@ EVAL_LAUNCHES = {"K1": 2, "K3": 1, "K5": 2}
 # each kernel's entry functions on the card (both routes), for its device
 # time in a train step
 KERNEL_FUNCS = {"K1": ("deform_conv3d_kernel", "deform_fwd_tc_kernel"),
-                "K2": ("deform_bwd_kernel", "deform_bwd_tc_kernel", "reduce_gw_kernel", "cast_depad_kernel"),
-                "K3": ("fsam_fwd_kernel",), "K4": ("fsam_bwd_kernel",), "K5": ("conv3d_k3_f32_kernel", "conv3d_tc_kernel")}
+                "K2": ("deform_bwd_3xtf32_kernel", "deform_bwd_tc_kernel", "reduce_gw_kernel", "cast_depad_kernel"),
+                "K3": ("fsam_fwd_kernel",), "K4": ("fsam_bwd_kernel",),
+                "K5": ("conv3d_3xtf32_kernel", "conv3d_tc_kernel")}
 
 
 class TimedPipeline:
@@ -2254,7 +2268,7 @@ def main() -> int:
     from dualpixelface_tpu_torch.config import load_config
     from dualpixelface_tpu_torch.ops.kernels import _build
     from dualpixelface_tpu_torch.serve import seeded_state_dict
-    from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, PEAK_SFU, bound_ms
+    from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, PEAK_SFU, PEAK_TF32, bound_ms
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -2328,14 +2342,18 @@ def main() -> int:
             "device_ms": t["device_ms"],
         })
         if "f32_route" in t:
-            # the f32 route at the trainer path's batch 4: every operation
-            # on the CUDA cores
+            # the f32 route at the trainer path's batch 4: bound_ms with
+            # every operation on the CUDA cores, split_bound_ms with the
+            # contractions three times over as TF32 on the tensor cores
             f = t["f32_route"]
-            f_ms, f_by = bound_ms(f["bytes"], (f["ops"], PEAK_F32))
+            ops = f["flops_mma"] + f["ops_f32"]
+            f_ms, f_by = bound_ms(f["bytes"], (ops, PEAK_F32))
+            s_ms, s_by = bound_ms(f["bytes"], (3 * f["flops_mma"], PEAK_TF32), (f["ops_f32"], PEAK_F32))
             kernels[-1]["f32_route"] = {
                 "batch": TRAINER_BATCH, "ms": f["ms"], "device_ms": f["device_ms"], "plain_ms": f["plain_ms"],
-                "library_ms": f["library_ms"], "bound_ms": f_ms, "bound_by": f_by, "ops": f["ops"],
-                "bytes": f["bytes"], "launches_per_trainer_step": TRAIN_STEP_LAUNCHES[k]}
+                "library_ms": f["library_ms"], "bound_ms": f_ms, "bound_by": f_by, "split_bound_ms": s_ms,
+                "split_bound_by": s_by, "ops": ops, "flops_mma": f["flops_mma"], "bytes": f["bytes"],
+                "launches_per_trainer_step": TRAIN_STEP_LAUNCHES[k]}
     for k, row in tools.items():
         kernels.append({
             "name": f"{k} {NAMES[k]}", "route": "cuda",

@@ -21,7 +21,10 @@
 // [2, 4, 192, 144, Cin], Cin 35 and 64) the two contractions (gcols and gw)
 // are twice K1's, ~2 x 2 x 221184 x 27 x Cin x 64 FLOP on the tensor cores,
 // beside ~31 GFLOP of f32 gather work (the samples, their derivatives, the
-// gx scatter) on the CUDA cores, against ~290 MB that must move in bf16.
+// gx scatter) on the CUDA cores, against ~290 MB that must move in bf16. At
+// the trainer's f32 batch 4 the contractions are 302.7 GFLOP, 908 as
+// 3xTF32 (1.84 ms at 495 TFLOP/s), beside 62.7 GFLOP of gather work (0.94
+// ms on the CUDA cores).
 // The TPU ran the forward's one-hot matmuls in reverse; the card has a cheap
 // gather and f32 atomics, so this is a gather/scatter. Two routes:
 //
@@ -53,17 +56,28 @@
 // registers through the gather), written out once as a per-block partial
 // sum (no atomics on gw).
 //
-// f32 (the checks' dtype): `deform_bwd_kernel`, the SIMT design: a block
-// owns one tap and a strided share of 32-voxel tiles; per tile it
-// recomputes the 8 corner indices, weights and weight derivatives of its
-// voxels (as K1 does), forms gcols with a small SIMT product against the
-// tap's weight rows kept in shared memory, then one warp per voxel walks the
-// channels: it scatters gx with f32 atomicAdd, reduces the three offset
-// gradients with warp shuffles, and stores the samples for gw, accumulated
-// by a second SIMT product into per-block partial sums.
+// f32 (every committed run config trains in f32): `deform_bwd_3xtf32_kernel`,
+// the same skeleton with its two contractions in split-TF32 (3xTF32:
+// operands split into bit-masked TF32 halves, a_lo b_hi + a_hi b_lo +
+// a_hi b_hi in the f32 accumulator, conv_tc.cuh), which keeps IEEE f32's
+// accuracy where one TF32 pass would not. TF32 `wgmma` has no transpose
+// flags, so both B operands are K-major and the g tile, raw f32 as TMA
+// brings it ([voxel][n] in two 128-byte halves over n), is the A operand of
+// both products, read from shared memory into registers and split there:
+// gcols = g . W_tap^T (m64nCPk8, K = n; B the tap's weight rows, split by
+// the wrapper into two planes [27][CP][64]) and gw^T = g^T . cols
+// (m64nCPk8, K = the tile's voxels; B the samples, which the gather stores
+// split, as [channel][voxel] rows). gcols and the samples stay f32 (no
+// rounding point: the plain version's f32 sums). x is padded to CP = 40 or
+// 64 f32 channels (160- or 256-byte rows): 16-byte corner loads, float4
+// reductions into gx32, goff summed with shuffles and stored in f32. f32
+// doubles every tile, so a tile is BM = 64 voxels (one m64 row tile): 105
+// KB of shared memory at CP = 40 (two blocks of 8 warps an SM), 141 KB at
+// 64 (one block of 16 warps). Warpgroup 0 runs the MMAs, warpgroup 1 the
+// corners, every warp the gather.
 //
-// Both: a second pass adds the gw partials, and one casts gx (f32) to the
-// input dtype once.
+// Both: a second pass adds the gw partials, and one casts gx32 (f32) to the
+// input dtype, dropping the padded channels (f32 at C = CP: gx32 is gx).
 #include "common.cuh"
 #include "conv_tc.cuh"
 #include "tma.cuh"
@@ -76,8 +90,7 @@ constexpr float EPS = 1.0f / 1024.0f;
 constexpr float AP = 3.0f;
 constexpr int CO = 64;     // K1's output channels
 constexpr int CMAX = 64;   // largest Cin the kernels take
-constexpr int TV = 32;     // SIMT route: voxels per tile
-constexpr int NT = 256;    // threads per block (8 warps), both routes
+constexpr int NT = 256;    // threads per block (8 warps) of the bf16 route
 
 // d/dpos of the aperture clamp min(max(pos, lo), hi).
 __device__ __forceinline__ float clamp_grad(float pos, float lo, float hi) {
@@ -136,146 +149,6 @@ __device__ __forceinline__ void voxel_corners(const T* __restrict__ offset, int 
     cdd[q][slot] = ok ? sz * wy * wx : 0.0f;
     cdh[q][slot] = ok ? wz * sy * wx * gh : 0.0f;
     cdw[q][slot] = ok ? wz * wy * sx * gwt : 0.0f;
-  }
-}
-
-// ---------------------------------------------------------------- f32: SIMT
-template <typename T>
-__global__ void __launch_bounds__(NT)
-deform_bwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
-                  const T* __restrict__ wmat, const T* __restrict__ g, float* __restrict__ gx32,
-                  T* __restrict__ goff, float* __restrict__ gwp, int B, int D, int H, int W, int C,
-                  int aperture, int nsplit) {
-  __shared__ float Gs[TV][CO + 1];      // g tile [voxel][n]
-  __shared__ float Ws[CMAX][CO + 1];    // this tap's weight rows [c][n]
-  __shared__ float GCs[TV][CMAX + 1];   // gcols [voxel][c], rounded to T
-  __shared__ float As[CMAX][TV + 1];    // cols [c][voxel], rounded to T
-  __shared__ int cidx[8][TV];           // corner voxel index, -1 when outside
-  __shared__ float cw[8][TV];           // corner weight
-  __shared__ float cdd[8][TV], cdh[8][TV], cdw[8][TV];  // its derivative along D, H, W
-
-  const int tap = blockIdx.y, split = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid % 16, ty = tid / 16;
-  const int M = B * D * H * W;
-
-  for (int e = tid; e < CMAX * CO; e += NT) {
-    const int c = e / CO, n = e - c * CO;
-    Ws[c][n] = c < C ? to_f32(wmat[(size_t)(tap * C + c) * CO + n]) : 0.0f;
-  }
-
-  float acc[4][4];  // gw partial: c = ty + 16 i, n = tx + 16 j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  const int ntiles = (M + TV - 1) / TV;
-  for (int tile = split; tile < ntiles; tile += nsplit) {
-    const int m0 = tile * TV;
-    __syncthreads();  // the previous tile's readers are done
-
-    if (tid < TV) voxel_corners<T, TV>(offset, m0 + tid, M, tap, D, H, W, aperture, tid, cidx, cw, cdd, cdh, cdw);
-    for (int e = tid; e < TV * CO; e += NT) {
-      const int r = e / CO, n = e - r * CO;
-      const int m = m0 + r;
-      Gs[r][n] = m < M ? to_f32(g[(size_t)m * CO + n]) : 0.0f;
-    }
-    __syncthreads();
-
-    // gcols = g . W_tap^T: voxel r = ty + 16 i, channel c = tx + 16 j
-    {
-      float s[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-      for (int n = 0; n < CO; ++n) {
-        float a[2], bw[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) a[i] = Gs[ty + 16 * i][n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bw[j] = Ws[tx + 16 * j][n];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bw[j], s[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) GCs[ty + 16 * i][tx + 16 * j] = round_to<T>(s[i][j]);
-    }
-    __syncthreads();
-
-    // one warp per voxel: samples, gx scatter, offset gradients
-    for (int i = 0; i < TV / 8; ++i) {
-      const int r = warp + 8 * i;
-      float pd = 0.0f, ph = 0.0f, pw = 0.0f;
-#pragma unroll
-      for (int j = 0; j < CMAX / 32; ++j) {
-        const int c = lane + 32 * j;
-        float s = 0.0f;
-        if (c < C) {
-          const float gc = GCs[r][c];
-          float sd = 0.0f, sh = 0.0f, sw = 0.0f;
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int id = cidx[q][r];
-            if (id < 0) continue;
-            const float xv = to_f32(x[(size_t)id * C + c]);
-            const float wq = cw[q][r];
-            s += wq * xv;
-            sd += cdd[q][r] * xv;
-            sh += cdh[q][r] * xv;
-            sw += cdw[q][r] * xv;
-            if (wq != 0.0f) atomicAdd(&gx32[(size_t)id * C + c], wq * gc);
-          }
-          pd += gc * sd;
-          ph += gc * sh;
-          pw += gc * sw;
-        }
-        As[c][r] = round_to<T>(s);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        pd += __shfl_xor_sync(0xffffffffu, pd, o);
-        ph += __shfl_xor_sync(0xffffffffu, ph, o);
-        pw += __shfl_xor_sync(0xffffffffu, pw, o);
-      }
-      const int m = m0 + r;
-      if (lane == 0 && m < M) {
-        T* op = goff + (size_t)m * 81 + tap * 3;
-        op[0] = from_f32<T>(pd);
-        op[1] = from_f32<T>(ph);
-        op[2] = from_f32<T>(pw);
-      }
-    }
-    __syncthreads();
-
-    // gw partial += cols^T . g
-#pragma unroll 4
-    for (int r = 0; r < TV; ++r) {
-      float a[4], bg[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bg[j] = Gs[r][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bg[j], acc[i][j]);
-    }
-  }
-
-  float* part = gwp + (size_t)split * 27 * C * CO;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = ty + 16 * i;
-    if (c >= C) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) part[(size_t)(tap * C + c) * CO + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -502,13 +375,263 @@ deform_bwd_tc_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_cons
   for (int e = tid; e < C * CO / 4; e += NT) part[e] = reinterpret_cast<const float4*>(sm + TcSmem::gw)[e];
 }
 
-// gx [M, C] = bf16(gx32 [M, CP]): the one rounding of x's gradient.
-__global__ void cast_depad_kernel(const float* __restrict__ gx32, __nv_bfloat16* __restrict__ gx, long long n,
-                                  int C, int CP) {
+// ------------------------------------------------------- f32: 3xTF32 tensor cores
+constexpr int FBM = 64;                // voxels per tile: one m64 row tile of gcols
+constexpr int F_HALF = FBM * 128;      // half a g tile: f32 [64 voxels][32 n], 128-byte rows
+constexpr int F_G_TILE = 2 * F_HALF;   // a g tile, f32 [64][64] as two halves over n
+
+// Shared memory of the f32 block (offsets from a 1024-aligned base). A
+// plane of the weight rows or of cols^T is two 128-byte-swizzled halves
+// [CP][32] (over n, over the tile's voxels); hi, then lo.
+template <int CP> struct F32Smem {
+  // threads and blocks an SM: at CP = 40 two blocks of 8 warps share an SM;
+  // at 64 the one block has 16, for as many corner loads in flight
+  static constexpr int threads = CP == 40 ? 256 : 512;
+  static constexpr int blocks = CP == 40 ? 2 : 1;
+  static constexpr int RS = CP + 4;                     // gcols / gw^T row stride in floats: 16-byte rows off the banks' period
+  static constexpr int PLANE = 2 * CP * 128;
+  static constexpr int g = 0;                           // two g tiles
+  static constexpr int w = g + 2 * F_G_TILE;            // the tap's weight rows, hi and lo planes
+  static constexpr int cols = w + 2 * PLANE;            // cols^T [c][voxel], hi and lo planes
+  static constexpr int gcols = cols + 2 * PLANE;        // gcols f32 [64 voxels][RS]
+  static constexpr int corners = gcols + FBM * RS * 4;  // idx, weight, 3 derivatives [8][64]
+  static constexpr int gw = corners + 5 * 8 * FBM * 4;  // the gw^T partial, f32 [64 n][RS]
+  static constexpr int bars = gw + CO * RS * 4;         // full[2], weights
+  static constexpr int bytes = bars + 3 * 8 + 1024;
+};
+
+// The A fragment of gw^T's m64nCPk8 (rows n0 + lane / 4 (+ 8), columns,
+// the voxels, v0 + lane % 4 (+ 4)): g^T read out of the [voxel][n] g tile,
+// split into TF32 halves.
+__device__ __forceinline__ void gt_fragment_3xtf32(const uint8_t* gt, int n0, int v0, uint32_t (&hi)[4],
+                                                   uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int n = n0 + (lane >> 2) + 8 * (q & 1);
+    const int v = v0 + (lane & 3) + 4 * (q >> 1);
+    const float a = *reinterpret_cast<const float*>(gt + (n >> 5) * F_HALF + tc::swizzle(v, (n & 31) >> 2) + (n & 3) * 4);
+    tc::split_tf32(a, hi[q], lo[q]);
+  }
+}
+
+// CP: x's padded channels (40 or 64), the N of both products. x [M, CP],
+// wsplit [2][27, CP, 64] (hi, lo; zero rows past C), gx32 [M, CP] (zeroed),
+// goff [M, 81], gwp [nsplit, 27 C, 64]; f32.
+template <int CP>
+__global__ void __launch_bounds__(F32Smem<CP>::threads, F32Smem<CP>::blocks)
+deform_bwd_3xtf32_kernel(const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap whmap,
+                         const __grid_constant__ CUtensorMap wlmap, const float* __restrict__ x,
+                         const float* __restrict__ offset, float* __restrict__ gx32, float* __restrict__ goff,
+                         float* __restrict__ gwp, int M, int D, int H, int W, int C, int aperture, int nsplit) {
+  using S = F32Smem<CP>;
+  constexpr int GS = CP / 4;        // lanes per voxel, 4 channels each
+  constexpr int GPW = 32 / GS;      // voxels a warp works at once
+  constexpr int NGROUPS = (S::threads / 32) * GPW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023);
+  float* gcs = reinterpret_cast<float*>(sm + S::gcols);
+  float* gws = reinterpret_cast<float*>(sm + S::gw);
+  int (*cidx)[FBM] = reinterpret_cast<int (*)[FBM]>(sm + S::corners);
+  float (*cw)[FBM] = reinterpret_cast<float (*)[FBM]>(sm + S::corners + 8 * FBM * 4);
+  float (*cdd)[FBM] = cw + 8;
+  float (*cdh)[FBM] = cw + 16;
+  float (*cdw)[FBM] = cw + 24;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::bars);
+  uint64_t* wbar = full + 2;
+
+  const int tap = blockIdx.x, split = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (M + FBM - 1) / FBM;
+  const uint32_t base = tc::smem_addr(sm);
+
+  if (tid == 0) {
+    tma::mbar_init(&full[0], 1);
+    tma::mbar_init(&full[1], 1);
+    tma::mbar_init(wbar, 1);
+    tma::fence_mbar_init();
+  }
+  for (int e = tid; e < CO * S::RS / 4; e += S::threads) reinterpret_cast<float4*>(gws)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  if (tid == 0) {
+    tma::mbar_expect_tx(wbar, 2 * S::PLANE);
+    for (int hf = 0; hf < 2; ++hf) {
+      tma::load_2d(sm + S::w + hf * CP * 128, &whmap, wbar, 32 * hf, tap * CP);
+      tma::load_2d(sm + S::w + S::PLANE + hf * CP * 128, &wlmap, wbar, 32 * hf, tap * CP);
+    }
+    if (split < ntiles) {
+      tma::mbar_expect_tx(&full[0], F_G_TILE);
+      tma::load_2d(sm + S::g, &gmap, &full[0], 0, split * FBM);
+      tma::load_2d(sm + S::g + F_HALF, &gmap, &full[0], 32, split * FBM);
+    }
+  }
+
+  int i = 0;
+  for (int tile = split; tile < ntiles; tile += nsplit, ++i) {
+    const int buf = i & 1, m0 = tile * FBM;
+    const uint8_t* gt = sm + S::g + buf * F_G_TILE;
+    if (tid == 0 && tile + nsplit < ntiles) {  // the next tile's g, into the buffer tile i - 1 used
+      uint8_t* nt = sm + S::g + (buf ^ 1) * F_G_TILE;
+      tma::mbar_expect_tx(&full[buf ^ 1], F_G_TILE);
+      tma::load_2d(nt, &gmap, &full[buf ^ 1], 0, (tile + nsplit) * FBM);
+      tma::load_2d(nt + F_HALF, &gmap, &full[buf ^ 1], 32, (tile + nsplit) * FBM);
+    }
+    if (tid < 128) {
+      // gcols = g . W_tap^T in 3xTF32 (K = n, 8 k slices in two rounds of
+      // four: the split fragments of a round stay in registers until its
+      // MMAs are done); gcols stays f32
+      float accg[CP / 2];
+#pragma unroll
+      for (int e = 0; e < CP / 2; ++e) accg[e] = 0.0f;
+      tma::mbar_wait(wbar, 0);
+      tma::mbar_wait(&full[buf], (i >> 1) & 1);
+#pragma unroll
+      for (int k0 = 0; k0 < CO / 8; k0 += 4) {
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          tc::a_fragment_3xtf32(gt + ((k0 + kk) >> 2) * F_HALF, 16 * warp, 8 * ((k0 + kk) & 3), ah[kk], al[kk]);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t wb = base + S::w + ((k0 + kk) >> 2) * CP * 128 + ((k0 + kk) & 3) * 32;
+          tc::mma_3xtf32<CP>(accg, ah[kk], al[kk], wb, wb + S::PLANE);
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+      }
+#pragma unroll
+      for (int e = 0; e < CP / 2; e += 2) {
+        const int r = 16 * warp + (lane >> 2) + 8 * ((e >> 1) & 1);
+        const int n = 8 * (e >> 2) + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(&gcs[r * S::RS + n]) = make_float2(accg[e], accg[e + 1]);
+      }
+    } else if (tid < 128 + FBM) {
+      const int v = tid - 128;
+      voxel_corners<float, FBM>(offset, m0 + v, M, tap, D, H, W, aperture, v, cidx, cw, cdd, cdh, cdw);
+    }
+    __syncthreads();
+
+    // gather / scatter, as the bf16 route's, on f32 rows: lanes j of a
+    // group take channels 4 j .. 4 j + 3 of one voxel
+    const int grp = lane / GS, j = lane - grp * GS, c = 4 * j;
+    for (int v0 = warp * GPW; v0 < FBM; v0 += NGROUPS) {
+      const int v = v0 + grp;
+      const bool on = grp < GPW && v < FBM;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, pd = 0.f, ph = 0.f, pw = 0.f;
+      if (on) {
+        const float4 gc = *reinterpret_cast<const float4*>(&gcs[v * S::RS + c]);
+        // the 8 corners' loads first, all in flight at once
+        int ids[8];
+        float4 xrs[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          ids[q] = cidx[q][v];
+          xrs[q] = ids[q] < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                              : __ldg(reinterpret_cast<const float4*>(x + (size_t)ids[q] * CP + c));
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int id = ids[q];
+          if (id < 0) continue;
+          const float4 xr = xrs[q];
+          const float wq = cw[q][v];
+          s0 += wq * xr.x;
+          s1 += wq * xr.y;
+          s2 += wq * xr.z;
+          s3 += wq * xr.w;
+          const float t = gc.x * xr.x + gc.y * xr.y + gc.z * xr.z + gc.w * xr.w;
+          pd += cdd[q][v] * t;
+          ph += cdh[q][v] * t;
+          pw += cdw[q][v] * t;
+          if (c < C && wq != 0.0f) red_add4(gx32 + (size_t)id * CP + c, wq * gc.x, wq * gc.y, wq * gc.z, wq * gc.w);
+        }
+        // cols^T [c + k][v], split into the hi and lo planes; at step st lane
+        // j writes channel k = (st + j / 2) % 4, so a step's stores spread
+        // over the swizzle's 8 row classes (2-way bank conflicts, not 8)
+#pragma unroll
+        for (int st = 0; st < 4; ++st) {
+          const int k = (st + (j >> 1)) & 3;
+          const float sv = k == 0 ? s0 : k == 1 ? s1 : k == 2 ? s2 : s3;
+          uint32_t hi, lo;
+          tc::split_tf32(sv, hi, lo);
+          uint8_t* p = sm + S::cols + (v >> 5) * CP * 128 + tc::swizzle(c + k, (v & 31) >> 2) + (v & 3) * 4;
+          *reinterpret_cast<uint32_t*>(p) = hi;
+          *reinterpret_cast<uint32_t*>(p + S::PLANE) = lo;
+        }
+      }
+      // the group's sum lands in its lane 0 (as the bf16 route's)
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        const float td = __shfl_down_sync(0xffffffffu, pd, off);
+        const float th = __shfl_down_sync(0xffffffffu, ph, off);
+        const float tw = __shfl_down_sync(0xffffffffu, pw, off);
+        if (j + off < GS) {
+          pd += td;
+          ph += th;
+          pw += tw;
+        }
+      }
+      if (on && j == 0 && m0 + v < M) {
+        float* op = goff + (size_t)(m0 + v) * 81 + tap * 3;
+        op[0] = pd;
+        op[1] = ph;
+        op[2] = pw;
+      }
+    }
+    tc::fence_proxy_async();  // cols, written by the generic proxy, is read by wgmma
+    __syncthreads();
+
+    if (tid < 128) {
+      // gw^T += g^T . cols in 3xTF32 (K = the tile's 64 voxels, two rounds
+      // of four k slices), added into the block's f32 partial in shared
+      // memory
+      float accw[CP / 2];
+#pragma unroll
+      for (int e = 0; e < CP / 2; ++e) accw[e] = 0.0f;
+#pragma unroll
+      for (int k0 = 0; k0 < FBM / 8; k0 += 4) {
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) gt_fragment_3xtf32(gt, 16 * warp, 8 * (k0 + kk), ah[kk], al[kk]);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t cb = base + S::cols + ((k0 + kk) >> 2) * CP * 128 + ((k0 + kk) & 3) * 32;
+          tc::mma_3xtf32<CP>(accw, ah[kk], al[kk], cb, cb + S::PLANE);
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+      }
+#pragma unroll
+      for (int e = 0; e < CP / 2; e += 2) {
+        const int n = 16 * warp + (lane >> 2) + 8 * ((e >> 1) & 1);
+        const int cc = 8 * (e >> 2) + 2 * (lane & 3);
+        float2* a = reinterpret_cast<float2*>(&gws[n * S::RS + cc]);
+        const float2 old = *a;
+        *a = make_float2(old.x + accw[e], old.y + accw[e + 1]);
+      }
+    }
+    tc::fence_proxy_async();  // the g tile, read by the generic proxy, is refilled by TMA
+    __syncthreads();          // this tile's g buffer, cols, gcols and corners are free
+  }
+
+  // the block's gw partial [c][n], rows c < C, from the transposed sum
+  float* part = gwp + ((size_t)split * 27 + tap) * C * CO;
+  for (int e = tid; e < C * CO; e += S::threads) {
+    const int cc = e / CO, n = e - cc * CO;
+    part[e] = gws[n * S::RS + cc];
+  }
+}
+
+// gx [M, C] = T(gx32 [M, CP]): the one rounding of x's gradient, the padded
+// channels dropped.
+template <typename T>
+__global__ void cast_depad_kernel(const float* __restrict__ gx32, T* __restrict__ gx, long long n, int C, int CP) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long m = i / C;
-  gx[i] = __float2bfloat16_rn(gx32[m * CP + (i - m * C)]);
+  gx[i] = from_f32<T>(gx32[m * CP + (i - m * C)]);
 }
 
 template <int CP>
@@ -532,6 +655,28 @@ int launch_tc(cudaStream_t s, const void* x, const void* offset, const void* wpk
   return (int)cudaGetLastError();
 }
 
+template <int CP>
+int launch_3xtf32(cudaStream_t s, const void* x, const void* offset, const void* wsplit, const void* g, float* gx32,
+                  void* goff, float* gwp, int M, int D, int H, int W, int C, int aperture, int nsplit) {
+  CUtensorMap gm, whm, wlm;
+  const uint64_t gdims[2] = {(uint64_t)CO, (uint64_t)M}, wdims[2] = {(uint64_t)CO, (uint64_t)27 * CP};
+  const uint64_t stride[1] = {(uint64_t)CO * 4};
+  const uint32_t gbox[2] = {32, FBM}, wbox[2] = {32, CP};  // 128-byte inner boxes: the swizzle's span
+  const float* wlo = static_cast<const float*>(wsplit) + (size_t)27 * CP * CO;
+  int rc = tma::encode(&gm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, g, gdims, stride, gbox);
+  if (rc == 0) rc = tma::encode(&whm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, wsplit, wdims, stride, wbox);
+  if (rc == 0) rc = tma::encode(&wlm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, wlo, wdims, stride, wbox);
+  if (rc != 0) return rc;
+  auto kernel = deform_bwd_3xtf32_kernel<CP>;
+  static const cudaError_t opted_in =  // once per instantiation and process (one card)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F32Smem<CP>::bytes);
+  if (opted_in != cudaSuccess) return (int)opted_in;
+  kernel<<<dim3(27, (unsigned)nsplit), F32Smem<CP>::threads, F32Smem<CP>::bytes, s>>>(
+      gm, whm, wlm, static_cast<const float*>(x), static_cast<const float*>(offset), gx32, static_cast<float*>(goff),
+      gwp, M, D, H, W, C, aperture, nsplit);
+  return (int)cudaGetLastError();
+}
+
 int reduce_gw(cudaStream_t s, const float* gwp, void* gw, int C, int nsplit, bool bf16) {
   const int n = 27 * C * CO;
   if (bf16)
@@ -542,27 +687,6 @@ int reduce_gw(cudaStream_t s, const float* gwp, void* gw, int C, int nsplit, boo
 }
 
 }  // namespace
-
-// f32 route (the SIMT kernel). x [B, D, H, W, C] (C <= 64), offset
-// [B, D, H, W, 81], wmat [27*C, CO], g [B, D, H, W, CO]; f32, contiguous.
-// Scratch: gwp f32 [nsplit, 27*C, CO]. Outputs: gx32 [B, D, H, W, C]
-// (zeroed here), goff like offset, gw [27*C, CO]. Returns
-// cudaErrorInvalidValue for Co != CO, C outside 1..64 or nsplit < 1, else
-// the first launch error.
-extern "C" int dpf_deform_conv3d_bwd(const void* x, const void* offset, const void* wmat, const void* g,
-                                     float* gx32, void* goff, float* gwp, void* gw, int B, int D, int H,
-                                     int W, int C, int Co, int nsplit, int aperture, void* stream) {
-  if (Co != CO || C < 1 || C > CMAX || nsplit < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nx = (long long)B * D * H * W * C;
-  int rc = (int)cudaMemsetAsync(gx32, 0, (size_t)nx * sizeof(float), s);
-  if (rc != 0) return rc;
-  deform_bwd_kernel<float><<<dim3((unsigned)nsplit, 27), NT, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(offset), static_cast<const float*>(wmat),
-      static_cast<const float*>(g), gx32, static_cast<float*>(goff), gwp, B, D, H, W, C, aperture, nsplit);
-  rc = (int)cudaGetLastError();
-  return rc != 0 ? rc : reduce_gw(s, gwp, gw, C, nsplit, false);
-}
 
 // bf16 route (the tensor-core kernel). xp [B, D, H, W, CP] (x padded with
 // zero channels to CP = 40 or 64), offset [B, D, H, W, 81], wpk [27, CP, CO]
@@ -594,5 +718,40 @@ extern "C" int dpf_deform_conv3d_bwd_tc(const void* xp, const void* offset, cons
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of the tensor-core block, for the build report.
+// f32 route (3xTF32 on the tensor cores). xp [B, D, H, W, CP] (x padded
+// with zero channels to CP = 40 or 64), offset [B, D, H, W, 81], wsplit
+// [2][27, CP, CO] (the taps' weight rows, zero past C, split into TF32 hi
+// and lo planes), g [B, D, H, W, CO]; f32, contiguous, 16-byte aligned.
+// Scratch: gx32 f32 [B, D, H, W, CP] (zeroed here; it may be gx itself when
+// C == CP), gwp f32 [nsplit, 27*C, CO]. Outputs: gx [B, D, H, W, C], goff
+// like offset, gw [27*C, CO], f32. Returns cudaErrorInvalidValue for
+// Co != CO, CP not 40 or 64, C outside 1..CP, nsplit outside
+// 1..ceil(M / 64), gx == gx32 with C != CP or a misaligned pointer, else
+// the first error of the tensor maps' encoding or a launch.
+extern "C" int dpf_deform_conv3d_bwd_3xtf32(const void* xp, const void* offset, const void* wsplit, const void* g,
+                                            float* gx32, void* gx, void* goff, float* gwp, void* gw, int B, int D,
+                                            int H, int W, int C, int CP, int Co, int nsplit, int aperture,
+                                            void* stream) {
+  const int M = B * D * H * W;
+  if (Co != CO || (CP != 40 && CP != 64) || C < 1 || C > CP || M < 1 || nsplit < 1 ||
+      nsplit > (M + FBM - 1) / FBM || (gx == gx32 && C != CP) ||
+      ((uintptr_t)xp | (uintptr_t)wsplit | (uintptr_t)g | (uintptr_t)gx32) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = (int)cudaMemsetAsync(gx32, 0, (size_t)M * CP * sizeof(float), s);
+  if (rc != 0) return rc;
+  rc = CP == 40 ? launch_3xtf32<40>(s, xp, offset, wsplit, g, gx32, goff, gwp, M, D, H, W, C, aperture, nsplit)
+                : launch_3xtf32<64>(s, xp, offset, wsplit, g, gx32, goff, gwp, M, D, H, W, C, aperture, nsplit);
+  if (rc != 0) return rc;
+  rc = reduce_gw(s, gwp, gw, C, nsplit, false);
+  if (rc != 0 || gx == gx32) return rc;
+  const long long n = (long long)M * C;
+  cast_depad_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(gx32, static_cast<float*>(gx), n, C, CP);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the tensor-core blocks, for the build report.
 extern "C" int dpf_deform_conv3d_bwd_tc_smem_bytes() { return TcSmem::bytes; }
+extern "C" int dpf_deform_conv3d_bwd_3xtf32_smem_bytes(int cp) {
+  return cp == 40 ? F32Smem<40>::bytes : F32Smem<64>::bytes;
+}

@@ -4,17 +4,20 @@ offset heads).
 Replaces the TPU kernel `conv3d_dslice_pallas` -> `_conv3d_call` in
 `dualpixelface_tpu/ops/kernels/conv3d_dslice.py`. The CUDA kernel
 (`csrc/conv3d_dslice.cu`) is an implicit GEMM over the flattened (tap,
-channel) axis with f32 accumulation: on the tensor cores for bf16, on the
-CUDA cores for f32 (the TPU kernel ran only in bf16 for lack of VMEM); what
-bounds it and how its design meets that is in the source note there. For
-bf16 the wrapper first lays the operands out for the tensor cores
-(`pack_conv3d`, the job the JAX wrapper does with `w2`): x's channels
-padded to a multiple of 8, the weight as [N_PAD, Kp] with K contiguous.
+channel) axis with f32 accumulation on the tensor cores (`wgmma`): bf16
+products for bf16, split-TF32 (3xTF32) ones for f32, which keep IEEE f32's
+accuracy (`split_f32.py`; the TPU kernel ran only in bf16 for lack of
+VMEM); what bounds it and how its design meets that is in the source note
+there. The wrapper first lays the operands out for the tensor cores (the
+job the JAX wrapper does with `w2`): `pack_conv3d` for bf16 (x's channels
+padded to a multiple of 8, the weight as [N_PAD, Kp] with K contiguous),
+`pack_conv3d_3xtf32` for f32 (channels to a multiple of 4, the weight's two
+TF32 planes [2, N_PAD, Kp]).
 
 `conv3d_dslice` takes the plain PyTorch version for tensors on the CPU and
-the kernel for CUDA tensors; anything else raises, as does a CUDA call
-with other than CO output channels (the one width the kernel is built for).
-`conv3d_dslice.launches` counts kernel launches.
+the kernel for CUDA tensors, either dtype; anything else raises, as does a
+CUDA call with other than CO output channels (the one width the kernel is
+built for). `conv3d_dslice.launches` counts kernel launches.
 
 The gradient is not a kernel, as in the JAX package, whose custom VJP
 differentiates the XLA reference (`conv3d_dslice.py:217-227`): it is the
@@ -28,29 +31,51 @@ import torch
 import torch.nn.functional as F
 
 from dualpixelface_tpu_torch.ops.kernels import _build
+from dualpixelface_tpu_torch.ops.kernels.split_f32 import split_planes
 
 CO = 81  # the kernel's output channels: the deform offset heads' 3 x 27, its only caller
 N_PAD = 88  # CO padded to eleven n8 tiles: the tensor-core kernel's N
-BK = 64  # the tensor-core kernel's reduction tile; the packed weight's K is a multiple of it
+BK = 64  # the bf16 route's reduction tile (128 bytes); the packed weight's K is a multiple of it
+BK_F32 = 32  # the f32 route's (128 bytes of f32)
 
 
-def pack_conv3d(x: torch.Tensor, weight: torch.Tensor, n_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+def pack_conv3d(x: torch.Tensor, weight: torch.Tensor, n_pad: int, step: int = 8,
+                bk: int = BK) -> tuple[torch.Tensor, torch.Tensor]:
     """The tensor-core kernel's operands: x [B, D, H, W, C] with zero
-    channels appended up to Cp, a multiple of 8 (itself when C is one), and
-    weight [3, 3, 3, C, Co] as B [n_pad, Kp], K contiguous: row n, column
-    tap * Cp + c holds weight[kd, kh, kw, c, n], zero for padded channels,
-    for n >= Co and for columns past 27 Cp (Kp = 27 Cp rounded up to BK)."""
+    channels appended up to Cp, a multiple of `step` (itself when C is one),
+    and weight [3, 3, 3, C, Co] as B [n_pad, Kp], K contiguous: row n,
+    column tap * Cp + c holds weight[kd, kh, kw, c, n], zero for padded
+    channels, for n >= Co and for columns past 27 Cp (Kp = 27 Cp rounded up
+    to `bk`)."""
     c, co = x.shape[-1], weight.shape[-1]
-    cp = -(-c // 8) * 8
+    cp = -(-c // step) * step
     if cp != c:
         x = F.pad(x, (0, cp - c))
         weight = F.pad(weight, (0, 0, 0, cp - c))
     k = 27 * cp
-    kp = -(-k // BK) * BK
+    kp = -(-k // bk) * bk
     wt = weight.reshape(k, co)
     if (kp, n_pad) != (k, co):
         wt = F.pad(wt, (0, n_pad - co, 0, kp - k))
     return x, wt.t().contiguous()
+
+
+def pack_conv3d_3xtf32(x: torch.Tensor, weight: torch.Tensor, n_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 route's operands: x padded to a multiple of 4 channels and
+    the packed weight [n_pad, Kp] (Kp a multiple of BK_F32) split into its
+    two TF32 planes [2, n_pad, Kp] (hi, lo; `split_f32.split_planes`)."""
+    x, wt = pack_conv3d(x, weight, n_pad, 4, BK_F32)  # a 16-byte granule of x: 4 f32 channels
+    return x, split_planes(wt)
+
+
+def route(dtype: torch.dtype) -> str:
+    """K5's kernel route for a dtype: "tensor_cores" (bf16 `wgmma`) or
+    "tensor_cores_3xtf32" (f32: split-TF32 `wgmma`)."""
+    if dtype == torch.bfloat16:
+        return "tensor_cores"
+    if dtype == torch.float32:
+        return "tensor_cores_3xtf32"
+    raise TypeError(f"conv3d_dslice: no kernel for dtype {dtype}")
 
 
 def conv3d_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -104,7 +129,8 @@ class _Conv3dDslice(torch.autograd.Function):
 
 def conv3d_dslice(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
     """3x3x3 pad-1 conv, NDHWC, differentiable. CPU tensors: the plain
-    version. CUDA tensors: the K5 kernel, or an error."""
+    version. CUDA tensors: the K5 kernel (bf16: bf16 `wgmma`; f32: 3xTF32
+    `wgmma`), or an error."""
     if x.ndim != 5 or weight.shape[:4] != (3, 3, 3, x.shape[-1]):
         raise ValueError(f"conv3d_dslice: x {tuple(x.shape)} / weight {tuple(weight.shape)} "
                          "must be [B, D, H, W, C] / [3, 3, 3, C, Co]")
@@ -130,8 +156,7 @@ def _forward(x, weight, bias):
     fn = _build.entry("conv3d_dslice", "dpf_conv3d_k3",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        x, weight = pack_conv3d(x, weight, N_PAD)
+    x, weight = pack_conv3d(x, weight, N_PAD) if bf16 else pack_conv3d_3xtf32(x, weight, N_PAD)
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
             b, d, h, w, x.shape[-1], co, int(bf16), _build.current_stream(x.device))

@@ -14,13 +14,16 @@ serves both semantics through `aperture`:
     windowed semantics (`deform_impl='pallas'`);
   * aperture=False: unbounded, the reference's sampling (`packed8`).
 
-Each kernel takes one of two routes by dtype (`fwd_route`, `bwd_route`):
-bf16 (serving and the train path) on the tensor cores, with x and the
-weight first laid out for them (`pack_deform_fwd`, `pack_deform_bwd`: x's
-channels padded to CP, the weight as each tap's rows), f32 (the checks'
-exact sums) on the SIMT kernels. `deform_conv3d_fused` is differentiable:
-its backward recomputes from the saved inputs, as the JAX custom VJP does,
-through `deform_conv3d_bwd`.
+Each kernel takes one of two routes by dtype (`fwd_route`, `bwd_route`).
+bf16 (serving and the bf16 train path) runs on the tensor cores, with x and
+the weight first laid out for them (`pack_deform_fwd`, `pack_deform_bwd`:
+x's channels padded to CP, the weight as each tap's rows). f32 (every
+committed run config trains in f32): K1 on its SIMT kernel, K2 on the
+tensor cores in split-TF32 (3xTF32, `split_f32.py`), which keeps IEEE
+f32's accuracy, with the bf16 route's padded x and its weight rows split
+into two TF32 planes (`pack_deform_bwd_3xtf32`). `deform_conv3d_fused` is
+differentiable: its backward recomputes from the saved inputs, as the JAX
+custom VJP does, through `deform_conv3d_bwd`.
 Each wrapper takes the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; anything else raises, as does a CUDA call with
 other than CO output channels (the one width the kernels are built for).
@@ -35,14 +38,16 @@ import math
 import torch
 
 from dualpixelface_tpu_torch.ops.kernels import _build
+from dualpixelface_tpu_torch.ops.kernels.split_f32 import split_planes
 
 AP = 3               # aperture: +-AP voxels around the output voxel (H, W)
 EPS = 1.0 / 1024.0
 KTAPS = 27
 CO = 64              # the kernel's output channels: the ANM deform convs', its only caller
-CIN_MAX = 64         # the tensor-core routes (and K2's SIMT route) take up to 64 input channels
+CIN_MAX = 64         # the tensor-core routes take up to 64 input channels
 CP_WIDTHS = (40, 64)  # the tensor-core routes: x's channels padded to the first that holds them
 K_STEP = 16          # K1's wgmma contracts 16 channels a step: its weight rows per tap are CP rounded up
+BWD_TILE = {torch.bfloat16: 128, torch.float32: 64}  # K2's voxels per tile, by dtype
 
 
 def clamp_positions(pos: torch.Tensor, out_coord: torch.Tensor) -> torch.Tensor:
@@ -118,40 +123,39 @@ def deform_conv3d_bwd_plain(x, offset, weight, bias, g, aperture=False):
     return tuple(grads) + ((None,) if bias is None else ())
 
 
-def _route(name: str, dtype: torch.dtype) -> str:
+def _route(name: str, dtype: torch.dtype, f32_route: str) -> str:
     if dtype == torch.bfloat16:
         return "tensor_cores"
     if dtype == torch.float32:
-        return "simt"
+        return f32_route
     raise TypeError(f"{name}: no kernel for dtype {dtype}")
 
 
 def fwd_route(dtype: torch.dtype) -> str:
     """K1's kernel for a dtype: "tensor_cores" (bf16: the `wgmma`
-    contraction, serving and the train path's forward) or "simt" (f32: the
-    checks' exact-f32 sums). Both take either aperture."""
-    return _route("deform_conv3d_fused", dtype)
+    contraction, serving and the bf16 train path's forward) or "simt" (f32:
+    exact-f32 sums on the CUDA cores). Both take either aperture."""
+    return _route("deform_conv3d_fused", dtype, "simt")
 
 
 def bwd_route(dtype: torch.dtype) -> str:
     """K2's kernel for a dtype: "tensor_cores" (bf16: `wgmma` contractions,
-    the train path) or "simt" (f32: the checks' exact-f32 sums). Both take
+    the bf16 train path) or "tensor_cores_3xtf32" (f32, the committed run
+    configs: the same contractions in split-TF32, f32-accurate). Both take
     either aperture."""
-    return _route("deform_conv3d_bwd", dtype)
+    return _route("deform_conv3d_bwd", dtype, "tensor_cores_3xtf32")
 
 
 def bwd_plan(shape, dtype: torch.dtype, sms: int) -> tuple[str, int, int]:
     """K2's launch for x of `shape` [B, D, H, W, C] and `dtype` on a card of
-    `sms` SMs: its route, the channels it reads x with (C padded to CP on
-    the tensor-core route) and the number of per-block gw partial sums
-    (blocks per tap, each owning a share of the voxel tiles: on the SIMT
-    route up to 32 shares of 32-voxel tiles; on the tensor-core route about
-    eight blocks per SM in all, four waves of two, over 128-voxel tiles)."""
+    `sms` SMs: its route, the channels it reads x with (C padded to CP) and
+    the number of per-block gw partial sums (blocks per tap, each owning a
+    share of the voxel tiles, 128 voxels in bf16 and 64 in f32: about eight
+    blocks per SM in all, four waves of two blocks an SM in bf16, eight
+    waves of one or four of two in f32)."""
     route = bwd_route(dtype)
     c, m = shape[-1], math.prod(shape[:-1])
-    if route == "simt":
-        return route, c, max(1, min(32, -(-m // 4096)))
-    return route, _padded_channels(c), max(1, min(-(-m // 128), round(8 * sms / KTAPS)))
+    return route, _padded_channels(c), max(1, min(-(-m // BWD_TILE[dtype]), round(8 * sms / KTAPS)))
 
 
 def _padded_channels(c: int) -> int:
@@ -177,6 +181,13 @@ def pack_deform_bwd(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor
     weight rows [27, CP, Co] (each tap's rows are the B of its gcols
     product)."""
     return _pack(x, weight, _padded_channels(x.shape[-1]))
+
+
+def pack_deform_bwd_3xtf32(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's f32 operands: `pack_deform_bwd`'s, the weight rows split into
+    their two TF32 planes [2, 27, CP, Co] (hi, lo; `split_f32.split_planes`)."""
+    xp, wpk = pack_deform_bwd(x, weight)
+    return xp, split_planes(wpk)
 
 
 def fwd_weight_rows(c: int) -> int:
@@ -271,8 +282,9 @@ deform_conv3d_fused.launches = 0
 def deform_conv3d_bwd(x, offset, weight, bias, g, aperture=True):
     """(gx, goff, gw, gb) of `deform_conv3d_fused` for the cotangent g
     [B, D, H, W, Co], each in its input's dtype (gb None without a bias).
-    CPU tensors: `deform_conv3d_bwd_plain`. CUDA tensors: the K2 kernel, or
-    an error."""
+    CPU tensors: `deform_conv3d_bwd_plain`. CUDA tensors: the K2 kernel of
+    the dtype's route (`bwd_route`: bf16 `wgmma`, or 3xTF32 `wgmma` for
+    f32), or an error."""
     _check_inputs("deform_conv3d_bwd", x, offset, weight)
     if g.shape != x.shape[:4] + weight.shape[-1:]:
         raise ValueError(f"deform_conv3d_bwd: g {tuple(g.shape)} must be {tuple(x.shape[:4] + weight.shape[-1:])}")
@@ -287,22 +299,18 @@ def deform_conv3d_bwd(x, offset, weight, bias, g, aperture=True):
     goff = torch.empty_like(offset)
     gw = torch.empty_like(weight)
     gwp = torch.empty((nsplit, KTAPS * c, CO), dtype=f32, device=dev)
-    stream = _build.current_stream(dev)
-    if route == "simt":
-        gx = torch.empty(x.shape, dtype=f32, device=dev)
-        fn = _build.entry("deform_conv3d_bwd", "dpf_deform_conv3d_bwd",
-                          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-        rc = fn(x.data_ptr(), offset.data_ptr(), weight.data_ptr(), g.data_ptr(), gx.data_ptr(), goff.data_ptr(),
-                gwp.data_ptr(), gw.data_ptr(), b, d, h, w, c, CO, nsplit, int(bool(aperture)), stream)
-    else:
+    if route == "tensor_cores":
         xp, wpk = pack_deform_bwd(x, weight)
-        gx32 = torch.empty((b, d, h, w, cp), dtype=f32, device=dev)
-        gx = torch.empty_like(x)
-        fn = _build.entry("deform_conv3d_bwd", "dpf_deform_conv3d_bwd_tc",
-                          [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        rc = fn(xp.data_ptr(), offset.data_ptr(), wpk.data_ptr(), g.data_ptr(), gx32.data_ptr(), gx.data_ptr(),
-                goff.data_ptr(), gwp.data_ptr(), gw.data_ptr(), b, d, h, w, c, cp, CO, nsplit, int(bool(aperture)),
-                stream)
+        symbol = "dpf_deform_conv3d_bwd_tc"
+    else:
+        xp, wpk = pack_deform_bwd_3xtf32(x, weight)
+        symbol = "dpf_deform_conv3d_bwd_3xtf32"
+    gx32 = torch.empty((b, d, h, w, cp), dtype=f32, device=dev)
+    gx = gx32 if (x.dtype, c) == (f32, cp) else torch.empty_like(x)  # f32 at C = CP: the sum is the gradient
+    fn = _build.entry("deform_conv3d_bwd", symbol, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    rc = fn(xp.data_ptr(), offset.data_ptr(), wpk.data_ptr(), g.data_ptr(), gx32.data_ptr(), gx.data_ptr(),
+            goff.data_ptr(), gwp.data_ptr(), gw.data_ptr(), b, d, h, w, c, cp, CO, nsplit, int(bool(aperture)),
+            _build.current_stream(dev))
     deform_conv3d_bwd.launches += 1
     _build.check_launch(rc, "deform_conv3d_bwd")
     gb = None if bias is None else g.sum(dim=(0, 1, 2, 3), dtype=f32).to(bias.dtype)

@@ -6,10 +6,13 @@ casts the parameters and the batch to bf16 at the boundary
 f32 masters through the casts), keeps the BatchNorm buffers in f32, and
 casts the results back to f32 for the losses.
 
-An f32 run is IEEE f32 throughout: `exact_f32` turns off the TF32 routes
-cuDNN's convolutions take by default (and those of CUDA matmuls), as the
-JAX package computes f32 convolutions in f32. The trainer and the
-predictor call it when their dtype is float32.
+An f32 run is f32-accurate throughout: `exact_f32` turns off the TF32
+routes cuDNN's convolutions take by default (and those of CUDA matmuls),
+as the JAX package computes f32 convolutions in f32, so the library runs
+IEEE f32; the hand-written f32 routes run IEEE f32 on the CUDA cores (K1)
+or split-TF32 on the tensor cores (K5, K2: three TF32 products of
+bit-masked halves, as accurate as IEEE f32; `ops/kernels/split_f32.py`).
+The trainer and the predictor call it when their dtype is float32.
 """
 from __future__ import annotations
 

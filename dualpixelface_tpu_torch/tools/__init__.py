@@ -21,9 +21,10 @@ from pathlib import Path
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
-# cores, HBM3 bandwidth.
+# cores, TF32 tensor cores, HBM3 bandwidth.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 # exp2 on the special-function units (MUFU): 16 per clock per SM on sm_90
 # (CUDA C++ Programming Guide, arithmetic instruction throughput), on 132 SMs

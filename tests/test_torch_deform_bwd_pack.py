@@ -1,19 +1,22 @@
 """The host side of K2's routes (`ops/kernels/deform_fused.py`), on the CPU.
 
-The tensor-core route (bf16) reads x with its channels padded to CP (40 or
-64) and each tap's weight rows packed as [27, CP, Co]
-(`pack_deform_bwd`): through the plain backward, the packed operands must
-give the same gradients as the original ones, and every padded entry must
-be exactly zero, in the operands and in the gradients. Which kernel a call
-takes follows its dtype alone (`bwd_route`, `bwd_plan`); off the CPU a
-call launches that kernel or raises, whatever the dtype and aperture."""
+Both routes read x with its channels padded to CP (40 or 64) and each
+tap's weight rows packed as [27, CP, Co] (`pack_deform_bwd`); the f32
+route (3xTF32) takes those rows split into two TF32 planes
+(`pack_deform_bwd_3xtf32`). Through the plain backward, the packed
+operands must give the same gradients as the original ones, and every
+padded entry must be exactly zero, in the operands and in the gradients.
+Which kernel a call takes follows its dtype alone (`bwd_route`,
+`bwd_plan`); off the CPU a call launches that kernel or raises, whatever
+the dtype and aperture."""
 import numpy as np
 import pytest
 import torch
 
 from dualpixelface_tpu_torch.ops.kernels import launch_counts
 from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
-    CP_WIDTHS, KTAPS, bwd_plan, bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain, pack_deform_bwd)
+    CP_WIDTHS, KTAPS, bwd_plan, bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain, pack_deform_bwd,
+    pack_deform_bwd_3xtf32)
 from torch_cpu_setup import two_threads
 
 two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
@@ -50,6 +53,25 @@ def test_packed_operands_give_the_same_backward(cin, aperture):
     assert not got[0][..., cin:].any() and not got[2][..., cin:, :].any()
 
 
+@pytest.mark.parametrize("aperture", [True, False])
+@pytest.mark.parametrize("cin", CINS)
+def test_split_operands_give_the_same_backward(cin, aperture):
+    """The f32 route's weight planes add back to the packed weight within
+    2^-21 of each entry, and through the plain backward hi + lo gives the
+    gradients of the original operands."""
+    x, off, w, bias, g = _operands(cin, seed=2)
+    xp, planes = pack_deform_bwd_3xtf32(x, w)
+    _, wpk = pack_deform_bwd(x, w)
+    assert planes.shape == (2,) + wpk.shape and planes.is_contiguous() and planes.dtype == torch.float32
+    assert bool(((planes[0] + planes[1] - wpk).abs() <= wpk.abs() * 2.0 ** -21).all())
+    assert torch.equal(xp, pack_deform_bwd(x, w)[0])
+    ref = deform_conv3d_bwd_plain(x, off, w, bias, g, aperture)
+    got = deform_conv3d_bwd_plain(xp, off, _unpack(planes[0] + planes[1]), bias, g, aperture)
+    for name, a, r in zip(("gx", "goff", "gw", "gb"), (got[0][..., :cin], got[1], got[2][..., :cin, :], got[3]), ref):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5 * float(r.abs().max()), msg=name)
+    assert not planes[:, :, cin:].any()  # padded input channels: zero in both planes
+
+
 @pytest.mark.parametrize("cin", CINS)
 def test_padding_is_exactly_zero(cin):
     x, _, w, _, _ = _operands(cin, seed=1)
@@ -65,7 +87,7 @@ def test_padding_is_exactly_zero(cin):
     assert wpk.stride(1) * 2 == 128 and (xp.shape[-1] * 2) % 16 == 0
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_cores"), (torch.float32, "simt"),
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_cores"), (torch.float32, "tensor_cores_3xtf32"),
                                          (torch.float16, None)])
 def test_route_follows_the_dtype(dtype, route):
     if route is None:
@@ -78,9 +100,9 @@ def test_route_follows_the_dtype(dtype, route):
 @pytest.mark.parametrize("shape,dtype,plan", [
     ((2, 4, 192, 144, 35), torch.bfloat16, ("tensor_cores", 40, 39)),  # the train path, 132 SMs
     ((2, 4, 192, 144, 64), torch.bfloat16, ("tensor_cores", 64, 39)),
-    ((2, 4, 192, 144, 35), torch.float32, ("simt", 35, 32)),
+    ((2, 4, 192, 144, 35), torch.float32, ("tensor_cores_3xtf32", 40, 39)),  # 64-voxel tiles
     ((1, 1, 2, 5, 35), torch.bfloat16, ("tensor_cores", 40, 1)),  # one tile: one share per tap
-    ((3, 5, 1, 1, 64), torch.float32, ("simt", 64, 1)),
+    ((3, 5, 1, 1, 64), torch.float32, ("tensor_cores_3xtf32", 64, 1)),
 ])
 def test_bwd_plan(shape, dtype, plan):
     assert bwd_plan(shape, dtype, 132) == plan
