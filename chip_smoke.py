@@ -9,14 +9,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (one nvcc per source, all at once), print the build seconds and each
      entry function's registers, shared memory and spill bytes from the
      build log; a tensor-core kernel (the bf16 routes of K1, of K5 and T1,
-     of K2 and of T4, the 3xTF32 f32 routes of K5 and K2) or an
+     of K2 and of T4, the 3xTF32 f32 routes of K5, K2 and K1) or an
      instantiation of K3 or K4 (each dtype, D = 1..16) that spills, or one
      missing from the log, fails;
   3. check each forward kernel (K1, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
-     in bf16 and f32; each check names its route (K1: the tensor cores for
-     bf16, the SIMT kernel for f32; K5: bf16 `wgmma` for bf16, 3xTF32
-     `wgmma` for f32); then K1 (both
+     in bf16 and f32; each check names its route (K1 and K5: bf16 `wgmma`
+     for bf16, 3xTF32 `wgmma` for f32); then K1 (both
      apertures) and K5 in f32 at a data-parallel rank's batch 2 (phase 11);
      then K1 and K5 in f32 at the trainer path's batch 4 (phase 10),
      checked and timed beside their plain versions (K5 also beside
@@ -170,8 +169,7 @@ object: their f32 route at the trainer path's batch 4, ms, device ms,
 plain ms, library ms (K5: cuDNN's exact f32), the bound with every
 operation on the CUDA cores (`bound_ms`) and the split bound with the
 contractions as 3xTF32 on the tensor cores and the rest on the CUDA cores
-(`split_bound_ms`; K1's route is still SIMT: its target), launches per
-trainer step;
+(`split_bound_ms`), launches per trainer step;
 T1-T4 the tools' measurements in phase 9, whose T rows sum the runs' times
 and bounds; K1-K5 also carry `device_ms`, phases 4-4c's time on the device
 alone); the last line is {"ok": true, "device": {...}}.
@@ -317,6 +315,8 @@ def print_build_report(report: dict) -> None:
                     smem("deform_conv3d_bwd", "dpf_deform_conv3d_bwd_3xtf32_smem_bytes", cp) for cp in (40, 64)})
     dynamic.update({("deform_conv3d", "deform_fwd_tc_kernel", cp):
                     smem("deform_conv3d", "dpf_deform_conv3d_tc_smem_bytes", cp) for cp in (40, 64)})
+    dynamic.update({("deform_conv3d", "deform_fwd_3xtf32_kernel", cp):
+                    smem("deform_conv3d", "dpf_deform_conv3d_3xtf32_smem_bytes", cp) for cp in (40, 64)})
     # K3's and K4's instantiations: each dtype and D = 1..16; none may spill
     fsam = {(k, t, d) for k in ("fwd", "bwd") for t in ("f", "13__nv_bfloat16") for d in range(1, 17)}
     seen = set()
@@ -332,7 +332,8 @@ def print_build_report(report: dict) -> None:
                 if f.get("spill_stores") != 0 or f.get("spill_loads") != 0:
                     fail(f"the K3/K4 kernel {f['function']} spills: {f}")
             if m := re.search(r"(conv3d_tc_kernel|conv3d_3xtf32_kernel|dot_bf16_kernel|deform_bwd_tc_kernel|"
-                              r"deform_bwd_3xtf32_kernel|deform_fwd_tc_kernel)ILi(\d+)E", f["function"]):
+                              r"deform_bwd_3xtf32_kernel|deform_fwd_tc_kernel|deform_fwd_3xtf32_kernel)ILi(\d+)E",
+                              f["function"]):
                 key = (name, m.group(1), int(m.group(2)))
                 seen.add(key)
                 line += f", dynamic smem {dynamic[key]} bytes ({key[1]}<{key[2]}>)"
@@ -483,8 +484,8 @@ def check_and_time_kernels(torch):
                 conv3d_dslice_plain(x, w_off, b_off), "float32")
 
     # the f32 routes at the trainer path's batch 4 (phase 10, which every
-    # committed f32 run trains on), checked and timed (`f32_work`): K1 on
-    # the CUDA cores, K5 in 3xTF32 on the tensor cores.
+    # committed f32 run trains on), checked and timed (`f32_work`): K1 and
+    # K5 in 3xTF32 on the tensor cores.
     m = math.prod(TRAINER_ANM_SHAPE)
     for k in ("K1", "K5"):
         timing[k]["f32_route"] = f32_work()
@@ -1082,7 +1083,7 @@ TRAIN_STEP_LAUNCHES = {"K1": 2, "K2": 2, "K3": 3, "K4": 3, "K5": 2}
 EVAL_LAUNCHES = {"K1": 2, "K3": 1, "K5": 2}
 # each kernel's entry functions on the card (both routes), for its device
 # time in a train step
-KERNEL_FUNCS = {"K1": ("deform_conv3d_kernel", "deform_fwd_tc_kernel"),
+KERNEL_FUNCS = {"K1": ("deform_fwd_3xtf32_kernel", "deform_fwd_tc_kernel"),
                 "K2": ("deform_bwd_3xtf32_kernel", "deform_bwd_tc_kernel", "reduce_gw_kernel", "cast_depad_kernel"),
                 "K3": ("fsam_fwd_kernel",), "K4": ("fsam_bwd_kernel",),
                 "K5": ("conv3d_3xtf32_kernel", "conv3d_tc_kernel")}

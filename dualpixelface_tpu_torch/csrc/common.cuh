@@ -1,7 +1,6 @@
 // Shared pieces of the port's CUDA kernels: dtype conversions and the SIMT
-// im2col-GEMM tile of the f32 routes of K1 (deform conv) and T1 (dense
-// 3x3x3 conv; its bf16 route, and both of K5's, run on the tensor cores,
-// conv_tc.cuh).
+// im2col-GEMM tile of T1's f32 route (dense 3x3x3 conv; its bf16 route,
+// and every route of K1, K2 and K5, run on the tensor cores, conv_tc.cuh).
 //
 // The GEMM tile is a plain SIMT design: a block of 256 threads (16 x 16)
 // owns BM = 128 output voxels x all Co <= 16*TN output channels; each thread

@@ -27,7 +27,7 @@
 // The output goes through shared memory: the block's BM x Co outputs are
 // one contiguous span of `out`, written in 16-byte stores whatever Co.
 //
-// f32 (K5's f32 route; K2's f32 route takes the TF32 MMA and the split):
+// f32 (K5's f32 route; K2's and K1's f32 routes take the TF32 MMA and the split):
 // the same tile on f32 elements as split-TF32 (3xTF32) products. A 16-byte
 // granule is 4 channels (C % 4 == 0), a 128-byte swizzle row BK32 = 32 f32
 // K-elements, and a wgmma k8 TF32 slice 32 bytes of a row, so the gather,

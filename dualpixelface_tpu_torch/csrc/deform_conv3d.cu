@@ -72,13 +72,73 @@
 // issuing the gather's instructions (per voxel, tap and channel 8 FMA and 8
 // bf16 -> f32 conversions); the contraction hides under the gather.
 //
-// f32 (the checks' exact sums): `deform_conv3d_kernel`, the first SIMT
-// design: a block owns 128 output voxels x Cout; per tap it computes the 8
-// corner indices and weights of its voxels once into shared memory, then
-// builds the A tile (16 channels x 128 voxels) by weighted corner loads,
-// rounds each sample to the input dtype, and runs the shared SIMT GEMM tile
-// (common.cuh), exact f32 FMA on the CUDA cores.
-#include "common.cuh"
+// f32 (every committed run config trains in f32; the f32 Predictor):
+// `deform_fwd_3xtf32_kernel`, the bf16 route's per-warp corner phase and
+// gather with the contraction in split-TF32 (3xTF32: each f32 operand split
+// into two bit-masked TF32 halves, a_lo b_hi + a_hi b_lo + a_hi b_hi added
+// into the f32 accumulator, the small terms first; conv_tc.cuh), which
+// keeps IEEE f32's accuracy where one TF32 pass would not
+// (`ops/kernels/split_f32.py`). The sample is not rounded and the bias is
+// added in f32. At the trainer's batch 4 ([4, 4, 192, 144, Cin], Cin 35 and
+// 64) the contractions are 151.4 GFLOP, 454 as TF32 (0.917 ms at 495
+// TFLOP/s), beside the gathers' 17.7 GFLOP on the CUDA cores (0.265 ms) and
+// about 0.7 GB of f32 x, offsets and output (0.21 ms at 3.35 TB/s): the
+// tensor cores bound it. x comes padded to CP = 40 or 64 f32 channels (160-
+// or 256-byte rows). The design:
+//   * the block: 16 warps (four warpgroups, each one m64 row tile of the
+//     m64n64 f32 accumulator, 32 registers a thread for the 27 taps) over a
+//     tile of 16 H rows x 16 W columns of one (batch, depth) plane, a row a
+//     warp. A square tile samples a smaller neighbourhood of x than as many
+//     voxels in a line, and one block an SM leaves L1 more room than two
+//     blocks of 8 warps (each of these timed faster on the card);
+//   * the weight: TF32 `wgmma` has no transpose flags, so B is K-major: per
+//     tap a plane [64 output channels][CP], split by the wrapper into hi and
+//     lo planes [2, 27, 64, CP] (`pack_deform_fwd_3xtf32`), zero past Cin.
+//     A tap's plane is two K panels [64][32] in the 128-byte swizzle (a
+//     swizzle row holds 32 f32; at CP = 40 the second panel's box reads 8
+//     columns and TMA fills the other 24 with zeros, which no k slice
+//     reads): 32 KB a tap for hi and lo, by TMA into a ring of two slots;
+//   * the corners: the bf16 route's per-warp phase, the offsets read as f32
+//     from global memory (each lane loads its voxel's three of the next tap
+//     while the gather runs: no block-wide span of offsets in shared
+//     memory: the ring and the A rows would leave L1 a quarter less);
+//   * the gather: 4 channels a lane, CP / 4 lanes per voxel (the warp's 16
+//     voxels x CP / 4 chunks make 5 or 8 items a lane, every lane busy); a
+//     lane issues its 8 corners' 16-byte loads of x before it uses the
+//     first, and sums the sample in corner order as a product then a sum,
+//     each rounded (no FMA contraction), as the plain version does: the
+//     samples equal its `cols` bit for bit. One 16-byte store of the raw
+//     sample into the warp's own rows [16][CP + 4] of shared memory;
+//   * the A operand, option 1 of the two: each warp reads its own 16 rows
+//     back as wgmma's register A fragments and splits them there, so wgmma
+//     never reads A from shared memory and no block barrier hands A over
+//     (a warp's 16 rows of its warpgroup's m64 tile are the rows it
+//     gathered; `__syncwarp` orders its stores before its reads). The layout
+//     is free of the swizzle: the row stride CP + 4 floats puts a fragment
+//     read's 8 rows x 4 columns on 32 distinct banks, and a quarter-warp's
+//     16-byte stores on 32 banks at CP = 64. Option 2, the split planes
+//     stored K-major for wgmma to read, would double the A rows in shared
+//     memory (another 68 KB at CP = 64), which L1 pays for;
+//   * the contraction: per tap CP / 8 k slices of three `wgmma` m64n64k8
+//     TF32, in rounds of 4 (CP = 64) or 5 (CP = 40) k slices whose split
+//     fragments are in registers at once, each round waited for before the
+//     next reuses them; the accumulator (32 f32 a thread) stays in
+//     registers for the 27 taps. A warpgroup's gather does not overlap its
+//     own MMAs: the other three warpgroups fill in;
+//   * the ring, with no block barrier either: after its tap's last round
+//     each warp adds one to its slot's count in shared memory, and the
+//     sixteenth warp to do so (every wgmma that read the slot is then done)
+//     issues the TMA loads of tap + 2 into it. So one warpgroup may finish
+//     tap t + 1 while another still works on tap t (a third slot gained
+//     nothing);
+//   * the epilogue adds the bias in f32 and stores each warp's voxels from
+//     the accumulator's registers (float2 stores that write whole 32-byte
+//     sectors); voxels outside the plane are not stored.
+// Shared memory: a 64 KB ring, 16 x (CP + 4) f32 a warp (44 or 68 KB), 16
+// KB of per-warp corners: 128,024 or 152,600 bytes with the alignment pad,
+// one block an SM at up to 128 registers a thread. The gather's 16-byte
+// loads move about 40 GB through L1 at the trainer's shape (twice the bf16
+// route's bytes), about 1.2 ms at L1's 128 bytes a clock an SM.
 #include "conv_tc.cuh"
 #include "tma.cuh"
 
@@ -89,93 +149,6 @@ using namespace dpf;
 constexpr float EPS = 1.0f / 1024.0f;
 constexpr float AP = 3.0f;
 constexpr int CO = 64;  // the ANM deform convs' output channels, the only caller
-constexpr int TN = 4;   // 16 * TN = CO: one block covers every output channel
-
-// ---------------------------------------------------------------- f32: SIMT
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-deform_conv3d_kernel(const T* __restrict__ x, const T* __restrict__ offset,
-                     const T* __restrict__ wmat, const T* __restrict__ bias, T* __restrict__ out,
-                     int B, int D, int H, int W, int C, int aperture) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][16 * TN];
-  __shared__ int cidx[8][BM];   // corner voxel index, -1 when outside
-  __shared__ float cwt[8][BM];  // corner weight
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int M = B * D * H * W;
-  const int m0 = blockIdx.x * BM;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int tap = 0; tap < 27; ++tap) {
-    if (tid < BM) {
-      const int m = m0 + tid;
-      if (m < M) {
-        int t = m;
-        const int w = t % W; t /= W;
-        const int h = t % H; t /= H;
-        const int d = t % D;
-        const int b = t / D;
-        const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-        const T* op = offset + (size_t)m * 81 + tap * 3;
-        const float pd = (float)(d - 1 + kd) + to_f32(op[0]);
-        float ph = (float)(h - 1 + kh) + to_f32(op[1]);
-        float pw = (float)(w - 1 + kw) + to_f32(op[2]);
-        if (aperture) {
-          ph = fminf(fmaxf(ph, (float)h - AP), (float)h + AP + 1.0f - EPS);
-          pw = fminf(fmaxf(pw, (float)w - AP), (float)w + AP + 1.0f - EPS);
-        }
-        const float d0 = floorf(pd), h0 = floorf(ph), w0 = floorf(pw);
-        const float fd = pd - d0, fh = ph - h0, fw = pw - w0;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int cz = q >> 2, cy = (q >> 1) & 1, cx = q & 1;
-          const float zi = d0 + cz, yi = h0 + cy, xi = w0 + cx;
-          const bool ok = zi >= 0.0f && zi <= (float)(D - 1) && yi >= 0.0f &&
-                          yi <= (float)(H - 1) && xi >= 0.0f && xi <= (float)(W - 1);
-          const float wz = cz ? fd : 1.0f - fd;
-          const float wy = cy ? fh : 1.0f - fh;
-          const float wx = cx ? fw : 1.0f - fw;
-          cidx[q][tid] = ok ? ((b * D + (int)zi) * H + (int)yi) * W + (int)xi : -1;
-          cwt[q][tid] = ok ? (wz * wy) * wx : 0.0f;
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          cidx[q][tid] = -1;
-          cwt[q][tid] = 0.0f;
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int c0 = 0; c0 < C; c0 += BK) {
-      const int c = c0 + tx;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const int ml = ty + 16 * r;
-        float s = 0.0f;
-        if (c < C) {
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int id = cidx[q][ml];
-            if (id >= 0) s += cwt[q][ml] * to_f32(x[(size_t)id * C + c]);
-          }
-        }
-        As[tx][ml] = round_to<T>(s);
-      }
-      load_b_tile<T, TN>(Bs, wmat, tap * C + c0, min(BK, C - c0), CO, tid);
-      __syncthreads();
-      mma_tile<TN>(As, Bs, acc, tx, ty);
-      __syncthreads();
-    }
-  }
-  store_tile<T, TN>(out, bias, acc, m0, M, CO, tx, ty);
-}
 
 // ------------------------------------------------------- bf16: tensor cores
 constexpr int TBM = 128;             // voxels per block: two m64 row tiles
@@ -224,6 +197,36 @@ __device__ __forceinline__ void axis(float p, float nmax, int& i0, int& i1, floa
   w1 = f0 + 1.0f >= 0.0f && f0 + 1.0f <= nmax ? fr : 0.0f;
   i0 = (int)fminf(fmaxf(f0, 0.0f), nmax);
   i1 = (int)fminf(fmaxf(f0 + 1.0f, 0.0f), nmax);
+}
+
+// The per-warp corner phase of one tap: lane l takes voxel cv = l / 2 of
+// the warp's 16 (coordinates v, offsets o of this tap) and the 4 corners of
+// its z plane cz = l % 2, and writes them to the warp's corners wc: per
+// voxel 8 indices, then 8 weights, in corner order. Indices are clamped
+// into the volume (every load is in bounds) and weights zero for a corner
+// outside it or a voxel that is not there (v.x < 0).
+__device__ __forceinline__ void tap_corners(int4* wc, int cv, int cz, int4 v, int tap, float o0, float o1, float o2,
+                                            int D, int H, int W, int aperture) {
+  const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+  const float pd = (float)(v.x - 1 + kd) + o0;
+  float ph = (float)(v.y - 1 + kh) + o1;
+  float pw = (float)(v.z - 1 + kw) + o2;
+  if (aperture) {
+    ph = fminf(fmaxf(ph, (float)v.y - AP), (float)v.y + AP + 1.0f - EPS);
+    pw = fminf(fmaxf(pw, (float)v.z - AP), (float)v.z + AP + 1.0f - EPS);
+  }
+  int z0, z1, y0, y1, x0, x1;
+  float wz0, wz1, wy0, wy1, wx0, wx1;
+  axis(pd, (float)(D - 1), z0, z1, wz0, wz1);
+  axis(ph, (float)(H - 1), y0, y1, wy0, wy1);
+  axis(pw, (float)(W - 1), x0, x1, wx0, wx1);
+  const float wz = v.x < 0 ? 0.0f : (cz ? wz1 : wz0);
+  const int zb = v.w + (cz ? z1 : z0) * H * W;
+  __syncwarp();  // the warp's reads of the last tap's corners are done
+  wc[cv * 4 + cz] = make_int4(zb + y0 * W + x0, zb + y0 * W + x1, zb + y1 * W + x0, zb + y1 * W + x1);
+  wc[cv * 4 + 2 + cz] = make_int4(__float_as_int((wz * wy0) * wx0), __float_as_int((wz * wy0) * wx1),
+                                  __float_as_int((wz * wy1) * wx0), __float_as_int((wz * wy1) * wx1));
+  __syncwarp();
 }
 
 // CP: x's padded channels (40 or 64). xp [M, CP], offset [M, 81], wmap over
@@ -298,39 +301,15 @@ deform_fwd_tc_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat
   const int r0 = WV * warp;  // the warp's first row: 16 of its warpgroup's 64
   const int grp = lane / GS, c = CPL * (lane - grp * GS);
   const bool lane_on = grp < GPW;
-  const float dmax = (float)(D - 1), hmax = (float)(H - 1), wmax = (float)(W - 1);
   // the warp's corner phase: lane l takes voxel r0 + l / 2, the z plane l % 2
   const int cv = lane >> 1, cz = lane & 1;
   const int4 cvx = vox[r0 + cv];
 
   for (int tap = 0; tap < 27; ++tap) {
-    const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
     uint8_t* at = sm + S::a + (tap & 1) * A_TILE;
-    {
-      // the tap's 8 corners of the warp's 16 voxels, 4 a lane: clamped
-      // indices (always inside the tensor) and weights, zero for a corner
-      // outside the volume or a voxel past M
-      const __nv_bfloat16* op = offs + (r0 + cv) * 81 + tap * 3;
-      const float pd = (float)(cvx.x - 1 + kd) + __bfloat162float(op[0]);
-      float ph = (float)(cvx.y - 1 + kh) + __bfloat162float(op[1]);
-      float pw = (float)(cvx.z - 1 + kw) + __bfloat162float(op[2]);
-      if (aperture) {
-        ph = fminf(fmaxf(ph, (float)cvx.y - AP), (float)cvx.y + AP + 1.0f - EPS);
-        pw = fminf(fmaxf(pw, (float)cvx.z - AP), (float)cvx.z + AP + 1.0f - EPS);
-      }
-      int z0, z1, y0, y1, x0, x1;
-      float wz0, wz1, wy0, wy1, wx0, wx1;
-      axis(pd, dmax, z0, z1, wz0, wz1);
-      axis(ph, hmax, y0, y1, wy0, wy1);
-      axis(pw, wmax, x0, x1, wx0, wx1);
-      const float wz = cvx.x < 0 ? 0.0f : (cz ? wz1 : wz0);
-      const int zb = cvx.w + (cz ? z1 : z0) * HW;
-      __syncwarp();  // the warp's reads of the last tap's corners are done
-      wcorner[cv * 4 + cz] = make_int4(zb + y0 * W + x0, zb + y0 * W + x1, zb + y1 * W + x0, zb + y1 * W + x1);
-      wcorner[cv * 4 + 2 + cz] = make_int4(__float_as_int((wz * wy0) * wx0), __float_as_int((wz * wy0) * wx1),
-                                           __float_as_int((wz * wy1) * wx0), __float_as_int((wz * wy1) * wx1));
-      __syncwarp();
-    }
+    const __nv_bfloat16* op = offs + (r0 + cv) * 81 + tap * 3;
+    tap_corners(wcorner, cv, cz, cvx, tap, __bfloat162float(op[0]), __bfloat162float(op[1]),
+                __bfloat162float(op[2]), D, H, W, aperture);
     // the gather: this warp's 16 rows of the A tile, which only its
     // warpgroup's wgmma of tap - 2 read (done: wgmma_wait<1> at tap - 1)
 #pragma unroll
@@ -416,21 +395,226 @@ int launch_tc(cudaStream_t s, const void* xp, const void* offset, const void* wp
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- f32: 3xTF32 tensor cores
+constexpr int F_WARPS = 16;              // warps a block: a tile of F_WARPS rows (H) x WV columns (W), a row a warp
+constexpr int F_BM = WV * F_WARPS;       // voxels a block
+constexpr int F_NT = 32 * F_WARPS;
+constexpr int F_STAGES = 2;              // the weight ring
+constexpr int F_PANEL = CO * 128;        // a K panel of a weight plane: [64 n][32 k] f32, 128-byte rows
+constexpr int F_SLOT = 4 * F_PANEL;      // a tap's hi and lo planes, two panels each
+
+// Shared memory of the f32 block (offsets from a 1024-aligned base).
+template <int CP> struct F32Smem {
+  static constexpr int RS = CP + 4;                  // a sample row's stride in f32: fragment reads on 32 banks
+  static constexpr int w = 0;                        // the weight ring
+  static constexpr int a = w + F_STAGES * F_SLOT;    // per warp, its 16 rows of samples [16][RS]
+  static constexpr int corners = a + F_BM * RS * 4;  // per warp, the tap's corners of its 16 voxels
+  static constexpr int bars = corners + F_BM * 64;   // full[F_STAGES], then each slot's count of warps done
+  static constexpr int bytes = bars + F_STAGES * 12 + 1024;
+};
+
+// The A fragment of Wgmma32 from a warp's 16 rows of f32 samples (row
+// stride rs floats; rows lane / 4 + 8 (q & 1), columns k0 + lane % 4 +
+// 4 (q >> 1)), split into TF32 hi and lo.
+__device__ __forceinline__ void sample_fragment(const float* rows, int rs, int k0, uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    tc::split_tf32(rows[((lane >> 2) + 8 * (q & 1)) * rs + k0 + (lane & 3) + 4 * (q >> 1)], hi[q], lo[q]);
+}
+
+// Tap t's hi and lo weight planes (maps hi, lo), two K panels each, into
+// the ring slot at dst, reported to bar.
+__device__ __forceinline__ void load_tap_3xtf32(uint8_t* dst, const CUtensorMap* hi, const CUtensorMap* lo,
+                                                uint64_t* bar, int t) {
+  tma::mbar_expect_tx(bar, F_SLOT);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    tma::load_2d(dst + p * F_PANEL, hi, bar, 32 * p, t * CO);
+    tma::load_2d(dst + (2 + p) * F_PANEL, lo, bar, 32 * p, t * CO);
+  }
+}
+
+// s += w * v channel by channel, the product and the sum each rounded (no
+// FMA): the plain version's `cols += weight * x`.
+__device__ __forceinline__ void add_corner_f32(float4& s, float w, const float4& v) {
+  s.x = __fadd_rn(s.x, __fmul_rn(w, v.x));
+  s.y = __fadd_rn(s.y, __fmul_rn(w, v.y));
+  s.z = __fadd_rn(s.z, __fmul_rn(w, v.z));
+  s.w = __fadd_rn(s.w, __fmul_rn(w, v.w));
+}
+
+// CP: x's padded channels (40 or 64). xp [M, CP], offset [M, 81], whmap and
+// wlmap over the weight's hi and lo planes [27 x 64, CP] (zero past C),
+// bias [64] or null, out [M, 64]; f32.
+template <int CP>
+__global__ void __launch_bounds__(F_NT, 16 / F_WARPS)
+deform_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap whmap, const __grid_constant__ CUtensorMap wlmap,
+                         const float* __restrict__ x, const float* __restrict__ offset,
+                         const float* __restrict__ bias, float* __restrict__ out, int D, int H, int W,
+                         int aperture) {
+  using S = F32Smem<CP>;
+  constexpr int KS = CP / 8;               // k slices of a tap
+  constexpr int ROUND = CP == 64 ? 4 : 5;  // k slices whose split fragments are in registers at once
+  constexpr int GS = CP / 4;               // gather lanes per voxel, 4 channels each
+  constexpr int ITEMS = WV * GS / 32;      // a lane's (voxel, 4 channels) items per tap
+  static_assert(KS % ROUND == 0 && (WV * GS) % 32 == 0, "the rounds and the items are whole");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = tc::smem_addr(sm);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::bars);
+  unsigned* done = reinterpret_cast<unsigned*>(sm + S::bars + F_STAGES * 8);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the block's tile: F_WARPS rows x WV columns from (h0, w0) of the
+  // (batch, depth) plane bd; the warp's row is h = h0 + warp, its voxels j
+  // the columns w0 + j (voxel index m_row + j), those inside the plane only
+  const int tiles_w = (W + WV - 1) / WV, tiles_h = (H + F_WARPS - 1) / F_WARPS;
+  const int bd = blockIdx.x / (tiles_w * tiles_h);
+  const int h = (blockIdx.x / tiles_w) % tiles_h * F_WARPS + warp, w0 = blockIdx.x % tiles_w * WV;
+  const int m_row = (bd * H + h) * W + w0;
+  const int r0 = WV * warp;  // the warp's first row of the block's m64 tiles: 16 of its warpgroup's 64
+  float* rows = reinterpret_cast<float*>(sm + S::a) + r0 * S::RS;
+  int4* wcorner = reinterpret_cast<int4*>(sm + S::corners + warp * WV * 64);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < F_STAGES; ++s) {
+      tma::mbar_init(&full[s], 1);
+      done[s] = 0u;
+    }
+    tma::fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int t = 0; t < F_STAGES; ++t) load_tap_3xtf32(sm + S::w + t * F_SLOT, &whmap, &wlmap, &full[t], t);
+  }
+
+  // the warp's corner phase: lane l takes its voxel l / 2, the z plane l % 2
+  const int cv = lane >> 1, cz = lane & 1;
+  const bool cin_plane = h < H && w0 + cv < W;
+  const int4 cvx = cin_plane ? make_int4(bd % D, h, w0 + cv, (bd - bd % D) * H * W) : make_int4(-1, 0, 0, 0);
+  const float* op = offset + (size_t)(cin_plane ? m_row + cv : 0) * 81;
+  float o0 = 0.0f, o1 = 0.0f, o2 = 0.0f;
+  if (cvx.x >= 0) {
+    o0 = __ldg(op);
+    o1 = __ldg(op + 1);
+    o2 = __ldg(op + 2);
+  }
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
+
+  for (int tap = 0; tap < 27; ++tap) {
+    tap_corners(wcorner, cv, cz, cvx, tap, o0, o1, o2, D, H, W, aperture);
+    if (cvx.x >= 0 && tap + 1 < 27) {  // the next tap's offsets, in flight during the gather
+      o0 = __ldg(op + 3 * tap + 3);
+      o1 = __ldg(op + 3 * tap + 4);
+      o2 = __ldg(op + 3 * tap + 5);
+    }
+    // the gather: item i of a lane is voxel v, channels c .. c + 3
+#pragma unroll 1
+    for (int i = 0; i < ITEMS; ++i) {
+      const int item = lane + 32 * i;
+      const int v = item / GS, c = 4 * (item - v * GS);
+      const int4 ia = wcorner[v * 4], ib = wcorner[v * 4 + 1];
+      const int4 wa = wcorner[v * 4 + 2], wb = wcorner[v * 4 + 3];
+      const int id[8] = {ia.x, ia.y, ia.z, ia.w, ib.x, ib.y, ib.z, ib.w};
+      const int wbits[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+      float4 xr[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) xr[q] = __ldg(reinterpret_cast<const float4*>(x + (size_t)id[q] * CP + c));
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) add_corner_f32(s, __int_as_float(wbits[q]), xr[q]);
+      *reinterpret_cast<float4*>(rows + v * S::RS + c) = s;
+    }
+    __syncwarp();  // the warp's samples are stored before it reads them back as fragments
+
+    const int slot = tap % F_STAGES;
+    tma::mbar_wait(&full[slot], (tap / F_STAGES) & 1);
+    const uint32_t sb = base + S::w + slot * F_SLOT;
+#pragma unroll
+    for (int k0 = 0; k0 < KS; k0 += ROUND) {
+      uint32_t ah[ROUND][4], al[ROUND][4];
+#pragma unroll
+      for (int kk = 0; kk < ROUND; ++kk) sample_fragment(rows, S::RS, 8 * (k0 + kk), ah[kk], al[kk]);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < ROUND; ++kk) {
+        // k slice k: panel k / 4, 32 bytes a slice into its 128-byte rows; lo two panels on
+        const int k = k0 + kk;
+        const uint32_t bh = sb + (k >> 2) * F_PANEL + (k & 3) * 32;
+        tc::mma_3xtf32<CO>(acc, ah[kk], al[kk], bh, bh + 2 * F_PANEL);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+    }
+    // the warp is done with the slot; the last of the block's warps refills it
+    if (lane == 0 && tap + F_STAGES < 27) {
+      __threadfence_block();
+      if (atomicAdd(&done[slot], 1u) % F_WARPS == F_WARPS - 1)
+        load_tap_3xtf32(sm + S::w + slot * F_SLOT, &whmap, &wlmap, &full[slot], tap + F_STAGES);
+    }
+  }
+
+  // out = acc + bias in f32, the warp's voxels from the accumulator's
+  // registers: voxel lane / 4 (+ 8), columns 8 i + 2 (lane % 4) (+ 1)
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int j = (lane >> 2) + 8 * ((e >> 1) & 1);
+    const int n = 8 * (e >> 2) + 2 * (lane & 3);
+    if (h >= H || w0 + j >= W) continue;
+    float2 o = make_float2(acc[e], acc[e + 1]);
+    if (bias != nullptr) o = make_float2(o.x + bias[n], o.y + bias[n + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)(m_row + j) * CO + n) = o;
+  }
+}
+
+template <int CP>
+int launch_3xtf32(cudaStream_t s, const void* xp, const void* offset, const void* wsplit, const void* bias,
+                  void* out, int M, int D, int H, int W, int aperture) {
+  CUtensorMap whm, wlm;
+  const uint64_t dims[2] = {(uint64_t)CP, (uint64_t)27 * CO};
+  const uint64_t stride[1] = {(uint64_t)CP * 4};
+  const uint32_t box[2] = {32, CO};  // 128-byte inner boxes: the swizzle's span
+  const float* wlo = static_cast<const float*>(wsplit) + (size_t)27 * CO * CP;
+  int rc = tma::encode(&whm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, wsplit, dims, stride, box);
+  if (rc == 0) rc = tma::encode(&wlm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, wlo, dims, stride, box);
+  if (rc != 0) return rc;
+  auto kernel = deform_fwd_3xtf32_kernel<CP>;
+  static const cudaError_t opted_in =  // once per instantiation and process (one card)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F32Smem<CP>::bytes);
+  if (opted_in != cudaSuccess) return (int)opted_in;
+  const int tiles = M / (H * W) * ((H + F_WARPS - 1) / F_WARPS) * ((W + WV - 1) / WV);
+  kernel<<<(unsigned)tiles, F_NT, F32Smem<CP>::bytes, s>>>(
+      whm, wlm, static_cast<const float*>(xp), static_cast<const float*>(offset), static_cast<const float*>(bias),
+      static_cast<float*>(out), D, H, W, aperture);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// f32 route (the SIMT kernel). x [B, D, H, W, C], offset [B, D, H, W, 81]
-// (tap-major (dD, dH, dW)), wmat [27*C, CO], bias [CO] or null, out
-// [B, D, H, W, CO]; f32, contiguous. Returns cudaErrorInvalidValue for
-// Co != CO, else cudaGetLastError() after the launch.
-extern "C" int dpf_deform_conv3d(const void* x, const void* offset, const void* wmat, const void* bias, void* out,
-                                 int B, int D, int H, int W, int C, int Co, int aperture, void* stream) {
-  if (Co != CO) return (int)cudaErrorInvalidValue;
-  const long long M = (long long)B * D * H * W;
-  deform_conv3d_kernel<float><<<(unsigned)((M + dpf::BM - 1) / dpf::BM), dpf::NTHREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(offset), static_cast<const float*>(wmat),
-      static_cast<const float*>(bias), static_cast<float*>(out), B, D, H, W, C, aperture);
-  return (int)cudaGetLastError();
+// f32 route (3xTF32 on the tensor cores). xp [B, D, H, W, CP] (x padded
+// with zero channels to CP = 40 or 64), offset [B, D, H, W, 81] (tap-major
+// (dD, dH, dW)), wsplit [2][27, CO, CP] (each tap's weight plane, K
+// contiguous, zero past C, split into TF32 hi and lo), bias [CO] or null,
+// out [B, D, H, W, CO]; f32, contiguous. Returns cudaErrorInvalidValue for
+// Co != CO, CP not 40 or 64, C outside 1..CP, M < 1 or an xp, wsplit or
+// out not 16-byte aligned, else the first error of the tensor maps'
+// encoding or the launch.
+extern "C" int dpf_deform_conv3d_3xtf32(const void* xp, const void* offset, const void* wsplit, const void* bias,
+                                        void* out, int B, int D, int H, int W, int C, int CP, int Co, int aperture,
+                                        void* stream) {
+  const int M = B * D * H * W;
+  if (Co != CO || (CP != 40 && CP != 64) || C < 1 || C > CP || M < 1 ||
+      ((uintptr_t)xp | (uintptr_t)wsplit | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return CP == 40 ? launch_3xtf32<40>(s, xp, offset, wsplit, bias, out, M, D, H, W, aperture)
+                  : launch_3xtf32<64>(s, xp, offset, wsplit, bias, out, M, D, H, W, aperture);
 }
 
 // bf16 route (the tensor-core kernel). xp [B, D, H, W, CP] (x padded with
@@ -456,4 +640,10 @@ extern "C" int dpf_deform_conv3d_tc(const void* xp, const void* offset, const vo
 // build report.
 extern "C" int dpf_deform_conv3d_tc_smem_bytes(int cp) {
   return cp == 40 ? FwdSmem<k_rows(40)>::bytes : FwdSmem<k_rows(64)>::bytes;
+}
+
+// Dynamic shared memory of the f32 block for CP = 40 or 64, for the build
+// report.
+extern "C" int dpf_deform_conv3d_3xtf32_smem_bytes(int cp) {
+  return cp == 40 ? F32Smem<40>::bytes : F32Smem<64>::bytes;
 }

@@ -14,19 +14,21 @@ serves both semantics through `aperture`:
     windowed semantics (`deform_impl='pallas'`);
   * aperture=False: unbounded, the reference's sampling (`packed8`).
 
-Each kernel takes one of two routes by dtype (`fwd_route`, `bwd_route`).
-bf16 (serving and the bf16 train path) runs on the tensor cores, with x and
-the weight first laid out for them (`pack_deform_fwd`, `pack_deform_bwd`:
-x's channels padded to CP, the weight as each tap's rows). f32 (every
-committed run config trains in f32): K1 on its SIMT kernel, K2 on the
-tensor cores in split-TF32 (3xTF32, `split_f32.py`), which keeps IEEE
-f32's accuracy, with the bf16 route's padded x and its weight rows split
-into two TF32 planes (`pack_deform_bwd_3xtf32`). `deform_conv3d_fused` is
-differentiable: its backward recomputes from the saved inputs, as the JAX
-custom VJP does, through `deform_conv3d_bwd`.
+Each kernel takes one of two routes by dtype (`fwd_route`, `bwd_route`),
+both on the tensor cores. bf16 (serving and the bf16 train path) runs bf16
+`wgmma`, with x and the weight first laid out for it (`pack_deform_fwd`,
+`pack_deform_bwd`: x's channels padded to CP, the weight as each tap's
+rows). f32 (every committed run config trains in f32) runs split-TF32
+(3xTF32, `split_f32.py`), which keeps IEEE f32's accuracy, on the same
+padded x with the weight split into two TF32 planes: K1's as each tap's
+plane [Co, CP] with K contiguous (`pack_deform_fwd_3xtf32`: TF32 `wgmma`
+has no transpose flags), K2's as its rows (`pack_deform_bwd_3xtf32`).
+`deform_conv3d_fused` is differentiable: its backward recomputes from the
+saved inputs, as the JAX custom VJP does, through `deform_conv3d_bwd`.
 Each wrapper takes the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; anything else raises, as does a CUDA call with
-other than CO output channels (the one width the kernels are built for).
+other than CO output channels (the one width the kernels are built for) or
+more than CIN_MAX input channels.
 `deform_conv3d_fused.launches` and `deform_conv3d_bwd.launches` count
 kernel launches.
 """
@@ -44,7 +46,7 @@ AP = 3               # aperture: +-AP voxels around the output voxel (H, W)
 EPS = 1.0 / 1024.0
 KTAPS = 27
 CO = 64              # the kernel's output channels: the ANM deform convs', its only caller
-CIN_MAX = 64         # the tensor-core routes take up to 64 input channels
+CIN_MAX = 64         # the kernels take up to 64 input channels
 CP_WIDTHS = (40, 64)  # the tensor-core routes: x's channels padded to the first that holds them
 K_STEP = 16          # K1's wgmma contracts 16 channels a step: its weight rows per tap are CP rounded up
 BWD_TILE = {torch.bfloat16: 128, torch.float32: 64}  # K2's voxels per tile, by dtype
@@ -133,9 +135,11 @@ def _route(name: str, dtype: torch.dtype, f32_route: str) -> str:
 
 def fwd_route(dtype: torch.dtype) -> str:
     """K1's kernel for a dtype: "tensor_cores" (bf16: the `wgmma`
-    contraction, serving and the bf16 train path's forward) or "simt" (f32:
-    exact-f32 sums on the CUDA cores). Both take either aperture."""
-    return _route("deform_conv3d_fused", dtype, "simt")
+    contraction, serving and the bf16 train path's forward) or
+    "tensor_cores_3xtf32" (f32, the committed run configs and the f32
+    Predictor: the same contraction in split-TF32, f32-accurate). Both take
+    either aperture."""
+    return _route("deform_conv3d_fused", dtype, "tensor_cores_3xtf32")
 
 
 def bwd_route(dtype: torch.dtype) -> str:
@@ -204,6 +208,16 @@ def pack_deform_fwd(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor
     return _pack(x, weight, fwd_weight_rows(x.shape[-1]))
 
 
+def pack_deform_fwd_3xtf32(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's f32 operands: x padded to CP channels, and each tap's weight
+    plane [Co, CP] (the tap's rows transposed: K contiguous, as TF32
+    `wgmma` reads B; zero past C) split into its two TF32 planes
+    [2, 27, Co, CP] (hi, lo; `split_f32.split_planes`). CP is a whole
+    number of the TF32 K step of 8, so no rows are added."""
+    xp, wpk = pack_deform_bwd(x, weight)
+    return xp, split_planes(wpk.transpose(1, 2))
+
+
 def _check_inputs(name, x, offset, weight):
     if x.ndim != 5 or offset.shape != x.shape[:4] + (3 * KTAPS,) or weight.shape[:4] != (3, 3, 3, x.shape[-1]):
         raise ValueError(
@@ -229,24 +243,20 @@ def _check_cuda_call(name, x, offset, weight, bias, **more):
 def _forward(x, offset, weight, bias, aperture):
     if x.device.type == "cpu":
         return deform_conv3d_plain(x, offset, weight, bias, aperture)
-    _check_cuda_call("deform_conv3d_fused", x, offset, weight, bias)
     b, d, h, w, c = x.shape
+    if c > CIN_MAX:
+        raise ValueError(f"deform_conv3d_fused: the kernel takes at most {CIN_MAX} input channels, not {c}")
+    _check_cuda_call("deform_conv3d_fused", x, offset, weight, bias)
     out = torch.empty((b, d, h, w, CO), dtype=x.dtype, device=x.device)
-    bptr = None if bias is None else bias.data_ptr()
-    stream = _build.current_stream(x.device)
-    if fwd_route(x.dtype) == "simt":
-        fn = _build.entry("deform_conv3d", "dpf_deform_conv3d",
-                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        rc = fn(x.data_ptr(), offset.data_ptr(), weight.data_ptr(), bptr, out.data_ptr(), b, d, h, w, c, CO,
-                int(bool(aperture)), stream)
-    else:
-        if c > CIN_MAX:
-            raise ValueError(f"deform_conv3d_fused: the kernel takes at most {CIN_MAX} input channels, not {c}")
-        fn = _build.entry("deform_conv3d", "dpf_deform_conv3d_tc",
-                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    if fwd_route(x.dtype) == "tensor_cores":
         xp, wpk = pack_deform_fwd(x, weight)
-        rc = fn(xp.data_ptr(), offset.data_ptr(), wpk.data_ptr(), bptr, out.data_ptr(), b, d, h, w, c,
-                xp.shape[-1], CO, int(bool(aperture)), stream)
+        symbol = "dpf_deform_conv3d_tc"
+    else:
+        xp, wpk = pack_deform_fwd_3xtf32(x, weight)
+        symbol = "dpf_deform_conv3d_3xtf32"
+    fn = _build.entry("deform_conv3d", symbol, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    rc = fn(xp.data_ptr(), offset.data_ptr(), wpk.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), b, d, h, w, c, xp.shape[-1], CO, int(bool(aperture)), _build.current_stream(x.device))
     deform_conv3d_fused.launches += 1
     _build.check_launch(rc, "deform_conv3d_fused")
     return out

@@ -1,9 +1,10 @@
-"""The split-TF32 (3xTF32) arithmetic of the f32 routes of K5 and K2.
+"""The split-TF32 (3xTF32) arithmetic of the f32 routes of K5, K2 and K1.
 
 The tensor cores take f32 operands only as TF32 (10 explicit mantissa
-bits). The f32 routes of `csrc/conv3d_dslice.cu` (K5) and
-`csrc/deform_conv3d_bwd.cu` (K2) keep f32's accuracy by splitting each
-f32 operand a into two TF32 halves, both bit-masked, never rounded:
+bits). The f32 routes of `csrc/conv3d_dslice.cu` (K5),
+`csrc/deform_conv3d_bwd.cu` (K2) and `csrc/deform_conv3d.cu` (K1) keep
+f32's accuracy by splitting each f32 operand a into two TF32 halves, both
+bit-masked, never rounded:
 
     hi = a with its low 13 bits cleared
     lo = (a - hi) with its low 13 bits cleared   (a - hi is exact)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -98,11 +99,13 @@ def stage_times(model, run) -> dict:
     return out
 
 
-def device_profile(run, reps: int, top: int) -> list[dict]:
+def device_profile(run, reps: int, top: int, groups: dict[str, str] | None = None) -> list[dict]:
     """torch.profiler over `reps` calls of `run` (each ending on the host):
     the wall time, the device's busy time (the union of the kernels' device
     intervals) and idle share, and the `top` kernels by device time per
-    call."""
+    call; with `groups` (name -> pattern), a last line of every kernel's
+    device time per call summed by the first group whose pattern its name
+    matches ("other" for none)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -123,7 +126,20 @@ def device_profile(run, reps: int, top: int) -> list[dict]:
         acc[1] += 1
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         lines.append({"kernel": name[:120], "device_ms": us / 1e3 / reps, "calls": n // reps})
+    if groups:
+        lines.append({"groups_ms": group_times(by_name, groups, reps)})
     return lines
+
+
+def group_times(by_name: dict[str, list], groups: dict[str, str], reps: int) -> dict:
+    """Device ms per call of the kernels `by_name` (name -> [us, calls])
+    summed by the first of `groups` (name -> pattern) that matches, and
+    "other"."""
+    out = dict.fromkeys([*groups, "other"], 0.0)
+    for name, (us, _) in by_name.items():
+        key = next((g for g, pat in groups.items() if re.search(pat, name)), "other")
+        out[key] += us / 1e3 / reps
+    return out
 
 
 def main() -> int:

@@ -1,16 +1,21 @@
 """The train-step rate of the port on the card, and where its time goes.
 
-    python3 -m dualpixelface_tpu_torch.profile_train [--cell stereodpnet_plus|bench] [--iters 30] [--top 25]
+    python3 -m dualpixelface_tpu_torch.profile_train [--cell stereodpnet_plus|bench|trainer] [--iters 30] [--top 25]
 
-Trains one of two cells (`CELLS`), batch 2 under the bf16 policy (the run
-keys TRAIN_CELL), on the JAX bench's batch recipe (`train_batch`),
+Trains one of three cells on the JAX bench's batch recipe (`train_batch`),
 H x W = 768 x 576, Adam at the configured rate, from seeded weights with
-non-zero offset heads, after one warm-up step:
+non-zero offset heads, after one warm-up step. Two (`CELLS`) run batch 2
+under the bf16 policy (the run keys TRAIN_CELL):
   * `stereodpnet_plus` (the default): fast attention, windowed deform with
     the offset clamp, fused regression;
   * `bench`: the JAX bench's own train step (`bench.py:306-317`):
     `stereodpnet` with exact attention, the windowed deform without the
     offset clamp, fused regression.
+The third, `trainer`, is the step of `chip_smoke.py` phase 10: the
+committed run config TRAINER_RUN as it is (`stereodpnet_plus`, f32, Adam)
+at its batch cut to TRAINER_BATCH, under `ops.precision.exact_f32` as an
+f32 Trainer runs it; it also prints the device time per step summed by
+kernel group (`KERNEL_GROUPS`).
 It prints, as JSON lines:
   * the train rate (`profile_serving.timed` over --iters steps) and the
     peak device memory of a step;
@@ -30,9 +35,9 @@ import json
 import numpy as np
 import torch
 
-from dualpixelface_tpu_torch.config import load_config
+from dualpixelface_tpu_torch.config import Configuration, load_config
 from dualpixelface_tpu_torch.losses import loss_selector
-from dualpixelface_tpu_torch.ops.precision import resolve_policy
+from dualpixelface_tpu_torch.ops.precision import exact_f32, resolve_policy
 from dualpixelface_tpu_torch.profile_serving import _card, device_profile, stage_times, timed
 from dualpixelface_tpu_torch.serve import seeded_state_dict
 from dualpixelface_tpu_torch.train.state import create_train_state
@@ -47,11 +52,32 @@ TRAIN_CELL = {"precision": "bf16", "batch_size": 2}
 # `stereodpnet`, exact attention, windowed deform, no offset clamp).
 CELLS = {"stereodpnet_plus": ("stereodpnet_plus", {}),
          "bench": ("stereodpnet", {"deform_impl": "pallas", "fused_regression": True})}
+# The trainer cell: the committed run config of chip_smoke.py phase 10 at
+# that phase's batch.
+TRAINER_RUN = "train_synthetic_stereodpnet_plus"
+TRAINER_BATCH = 4
+# Kernel groups of the trainer cell's step, each kernel in the first whose
+# pattern its name matches: the port's hand-written kernels K1-K5 (both
+# routes); cuDNN's convolutions and cuBLAS's products (forward and
+# backward; the kernel list names the algorithms); the optimizer's
+# multi-tensor updates; reductions and elementwise kernels (BatchNorm's
+# plain torch ops among them: it has no kernel of its own); the rest
+# (copies, memsets, gathers, resizes).
+KERNEL_GROUPS = {
+    "K1-K5": r"deform_fwd_|deform_bwd_|reduce_gw_kernel|cast_depad_kernel|fsam_|conv3d_3xtf32_kernel|conv3d_tc_kernel",
+    "convolutions and products": r"conv|gemm|xmma|cudnn|cutlass|fft|wgrad|dgrad|fprop|winograd|implicit|sm\d\d_",
+    "optimizer": r"multi_tensor_apply",
+    "reductions": r"reduce|Reduce|norm",
+    "elementwise": r"elementwise|vectorized|unrolled",
+}
 
 
 def cell_config(cell: str = "stereodpnet_plus"):
     """The merged config of train cell `cell`: its model and overrides, and
-    the run keys TRAIN_CELL."""
+    the run keys TRAIN_CELL; for `trainer`, the run config TRAINER_RUN at
+    TRAINER_BATCH."""
+    if cell == "trainer":
+        return Configuration(TRAINER_RUN, make_workspace=False, overrides={"batch_size": TRAINER_BATCH}).get_config()
     model, overrides = CELLS[cell]
     return load_config(model, model_overrides=overrides, run_overrides=TRAIN_CELL)
 
@@ -157,7 +183,7 @@ def phase_times(step, state, batch) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cell", choices=tuple(CELLS), default="stereodpnet_plus")
+    ap.add_argument("--cell", choices=(*CELLS, "trainer"), default="stereodpnet_plus")
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -166,6 +192,8 @@ def main() -> int:
 
     config = cell_config(args.cell)
     dtype = resolve_policy(config)
+    if dtype == torch.float32:
+        exact_f32()  # as an f32 Trainer runs
     state = create_train_state(config, steps_per_epoch=100, state_dict=seeded_state_dict(config), device="cuda")
     step = make_train_step(state.model, loss_selector(config), dtype)
     batch = train_batch(config.batch_size, H, W)
@@ -178,7 +206,8 @@ def main() -> int:
                       "card": _card(), "batch": config.batch_size, "hw": [H, W],
                       "dtype": str(dtype).removeprefix("torch.")}), flush=True)
     print(json.dumps({"phase_ms": phase_times(step, state, batch)}), flush=True)
-    for line in device_profile(lambda: step(state, batch), reps=2, top=args.top):
+    groups = KERNEL_GROUPS if args.cell == "trainer" else None
+    for line in device_profile(lambda: step(state, batch), reps=2, top=args.top, groups=groups):
         print(json.dumps(line), flush=True)
     return 0
 

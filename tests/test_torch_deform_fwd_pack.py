@@ -1,20 +1,25 @@
 """The host side of K1's routes (`ops/kernels/deform_fused.py`), on the CPU.
 
-The tensor-core route (bf16) reads x with its channels padded to CP (40 or
-64) and each tap's weight rows packed as [27, KP, Co], KP = CP rounded up
-to the wgmma K step of 16 (`pack_deform_fwd`); the kernel's A tile holds
-zeros in channels CP..KP-1. Through the plain forward, the packed operands
-(x padded on to KP, as the A tile is) must give exactly the unpacked
-output, and every padded entry must be exactly zero. Which kernel a call
-takes follows its dtype alone (`fwd_route`); off the CPU a call launches
-that kernel or raises, whatever the dtype and aperture."""
+The bf16 route reads x with its channels padded to CP (40 or 64) and each
+tap's weight rows packed as [27, KP, Co], KP = CP rounded up to the wgmma K
+step of 16 (`pack_deform_fwd`); the kernel's A tile holds zeros in
+channels CP..KP-1. The f32 route (3xTF32) reads the same padded x and each
+tap's weight plane [Co, CP], K contiguous, split into TF32 hi and lo
+(`pack_deform_fwd_3xtf32`). Through the plain forward, the packed operands
+(x padded on to KP, as the A tile is; the hi plane transposed back) must
+give exactly the unpacked output, and every padded entry must be exactly
+zero. Which kernel a call takes follows its dtype alone (`fwd_route`); off
+the CPU a call launches that kernel or raises, whatever the dtype and
+aperture, and more than CIN_MAX input channels raise before either."""
 import numpy as np
 import pytest
 import torch
 
 from dualpixelface_tpu_torch.ops.kernels import launch_counts
 from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
-    CP_WIDTHS, KTAPS, deform_conv3d_fused, deform_conv3d_plain, fwd_route, fwd_weight_rows, pack_deform_fwd)
+    CIN_MAX, CP_WIDTHS, KTAPS, deform_conv3d_fused, deform_conv3d_plain, fwd_route, fwd_weight_rows,
+    pack_deform_bwd, pack_deform_fwd, pack_deform_fwd_3xtf32)
+from dualpixelface_tpu_torch.ops.kernels.split_f32 import split_planes
 from torch_cpu_setup import two_threads
 
 two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
@@ -75,12 +80,50 @@ def test_padding_is_exactly_zero(cin):
     assert wpk.stride(1) * 2 == 128 and (kp * 128) % 1024 == 0 and (xp.shape[-1] * 2) % 16 == 0
 
 
+@pytest.mark.parametrize("aperture", [True, False])
+@pytest.mark.parametrize("cin", CINS)
+def test_split_planes_give_the_same_forward(cin, aperture):
+    """The f32 route's hi plane, transposed back to the taps' rows, is the
+    weight (small integers keep no bit below TF32's mantissa, so lo is
+    zero): through the plain forward on the padded x it gives the unpacked
+    output bit for bit."""
+    x, off, w, bias = _operands(cin)
+    xp, wpk = pack_deform_fwd_3xtf32(x, w)
+    cp = xp.shape[-1]
+    assert not wpk[1].any()
+    got = deform_conv3d_plain(xp, off, wpk[0].transpose(1, 2).reshape(3, 3, 3, cp, 64), bias, aperture)
+    ref = deform_conv3d_plain(x, off, w, bias, aperture)
+    assert ref.abs().max() > 1.0
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("cin", CINS)
+def test_split_planes_layout(cin):
+    """[2, 27, Co, KP], K contiguous, KP = CP (a whole number of the TF32 K
+    step of 8); hi and lo are `split_planes` of the transposed tap rows,
+    exactly zero past Cin; x padded as K2's f32 route pads it."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 5, 4, cin)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, 3, cin, 64)) / np.sqrt(27 * cin)).astype(np.float32))
+    xp, wpk = pack_deform_fwd_3xtf32(x, w)
+    cp = next(c for c in CP_WIDTHS if c >= cin)
+    assert wpk.shape == (2, KTAPS, 64, cp) and wpk.is_contiguous() and wpk.stride(-1) == 1 and cp % 8 == 0
+    rows = torch.nn.functional.pad(w.reshape(KTAPS, cin, 64), (0, 0, 0, cp - cin))
+    assert torch.equal(wpk, split_planes(rows.transpose(1, 2).contiguous()))
+    assert wpk[1].any() and not wpk[:, :, :, cin:].any()
+    assert torch.equal(wpk[0] + wpk[1], (wpk[0].double() + wpk[1].double()).float())  # hi + lo exact in f32
+    assert torch.equal(xp, pack_deform_bwd(x, w)[0])
+    # a TMA box row of a plane is 128 bytes (32 f32): a row of KP f32 is a
+    # whole number of 16-byte steps, as the tensor map's stride must be
+    assert (cp * 4) % 16 == 0 and (xp.shape[-1] * 4) % 16 == 0
+
+
 @pytest.mark.parametrize("cin,rows", [(1, 48), (3, 48), (35, 48), (40, 48), (41, 64), (64, 64)])
 def test_weight_rows_are_whole_k_steps(cin, rows):
     assert fwd_weight_rows(cin) == rows and rows % 16 == 0
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_cores"), (torch.float32, "simt"),
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_cores"), (torch.float32, "tensor_cores_3xtf32"),
                                          (torch.float16, None)])
 def test_route_follows_the_dtype(dtype, route):
     if route is None:
@@ -113,14 +156,31 @@ def test_either_route_raises_instead_of_falling_back(dtype, aperture):
     assert launch_counts() == before
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_more_than_cin_max_channels_raise(dtype):
+    """Either route takes at most CIN_MAX input channels: a CUDA call with
+    more raises before anything is packed or launched."""
+    x, off, w, bias = _operands(CIN_MAX + 1, shape=(1, 1, 2, 2))
+    x, off, w, bias = (torch.Tensor._make_subclass(_TensorOnCuda, t.to(dtype)) for t in (x, off, w, bias))
+    before = launch_counts()
+    with pytest.raises(ValueError, match=f"at most {CIN_MAX} input channels"):
+        deform_conv3d_fused(x, off, w, bias)
+    assert launch_counts() == before
+
+
 def test_split_tool_patches_the_kernel_source():
     """`tools.bench_k1_split` compiles parts of K1 out by patching its
-    source: every text it patches is in the tensor-core kernel's source
-    exactly once, and each variant's macro lands in the patched source."""
+    source: every text it patches is in the source exactly once, the f32
+    route's load of x and its contraction as well as the bf16 route's, and
+    each variant's macro lands in the patched source."""
     from dualpixelface_tpu_torch.ops.kernels import _build
     from dualpixelface_tpu_torch.tools import bench_k1_split as split
 
     source = split.patched((_build.CSRC / "deform_conv3d.cu").read_text())
-    for flags in split.VARIANTS.values():
+    for flags in (*split.VARIANTS.values(), *split.F32_VARIANTS.values()):
         for flag in flags:
             assert flag.removeprefix("-D") in source, flag
+    f32_kernel = source[source.index("deform_fwd_3xtf32_kernel("):]
+    assert "xr[q] = K1_X_LOAD4(q);" in f32_kernel
+    assert "if (!NO_CONTRACTION_FLAG) tc::mma_3xtf32<CO>(acc, " in f32_kernel
+    assert set(split.SYMBOLS.values()) == {"dpf_deform_conv3d_tc", "dpf_deform_conv3d_3xtf32"}

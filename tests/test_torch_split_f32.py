@@ -1,4 +1,4 @@
-"""The split-TF32 (3xTF32) arithmetic of the f32 routes of K5 and K2
+"""The split-TF32 (3xTF32) arithmetic of the f32 routes of K5, K2 and K1
 (`ops/kernels/split_f32.py`), on the CPU.
 
 The f32 routes run their contractions on the tensor cores with each f32
@@ -42,6 +42,14 @@ def _gw(cp, rng):
     return rng.standard_normal((64, ROWS)), rng.standard_normal((ROWS, cp)) * 0.6
 
 
+def _k1(cp, rng):
+    """K1: the samples [voxels, 27 CP] (about 0.6 of x's scale) against the
+    taps' weight [27 CP, 64] at chip_smoke's 1/sqrt(27 Cin) scale, Cin 35
+    padded to CP 40, or 64."""
+    cin = {40: 35, 64: 64}[cp]
+    return rng.standard_normal((ROWS, 27 * cp)) * 0.6, rng.standard_normal((27 * cp, 64)) / math.sqrt(27 * cin)
+
+
 # (name, operands, K or CP, chip_smoke's tolerance for the result)
 CASES = [
     ("K5 Cin 35 -> Cp 36", _k5, 27 * 36, chip_smoke.REL_TOL["float32"]),
@@ -51,6 +59,8 @@ CASES = [
     ("K2 gcols CP 64", _gcols, 64, chip_smoke.BWD_TOL["float32"]["gx"]),
     ("K2 gw CP 40", _gw, 40, chip_smoke.BWD_TOL["float32"]["gw"]),
     ("K2 gw CP 64", _gw, 64, chip_smoke.BWD_TOL["float32"]["gw"]),
+    ("K1 CP 40", _k1, 40, chip_smoke.REL_TOL["float32"]),
+    ("K1 CP 64", _k1, 64, chip_smoke.REL_TOL["float32"]),
 ]
 
 
