@@ -9,9 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (one nvcc per source, all at once), print the build seconds and each
      entry function's registers, shared memory and spill bytes from the
      build log; a tensor-core kernel (the bf16 routes of K1, of K5 and T1,
-     of K2 and of T4, the 3xTF32 f32 routes of K5, K2 and K1) or an
-     instantiation of K3 or K4 (each dtype, D = 1..16) that spills, or one
-     missing from the log, fails;
+     of K2 and of T4, the 3xTF32 f32 routes of K5 and T1, of K2, of K1 and
+     of T4) or an instantiation of K3 or K4 (each dtype, D = 1..16) that
+     spills, or one missing from the log, fails;
   3. check each forward kernel (K1, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
      in bf16 and f32; each check names its route (K1 and K5: bf16 `wgmma`
@@ -29,7 +29,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3c. K1 (Cin 35 and 64, both apertures), K5 (Cin 35 and 64), T1 (Co 32
      and 64, without and with the folded BatchNorm and ReLU) and K2 (Cin 35
      and 64, both apertures) at small ragged shapes (`EDGE_SHAPES`: M no
-     multiple of a tile, H or W below 3, D = 1), bf16 and f32;
+     multiple of a tile, H or W below 3, D = 1), bf16 and f32, each check
+     naming its route;
   3d. K3 at the serving batch and K4 at the train batch, at the paths'
      coarse shape for D = 8, 5 and 16 and at (50, 36) for every D = 1..16
      (each instantiation), then logits of scale 30 with a cell of planes
@@ -81,8 +82,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and T1 at the four stride-1 hourglass sites of
      `python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold` (768x576,
      batch 4), each checked against its plain version and then driven
-     through its tool's measurement, timed beside its bound; before them,
-     T4 at ragged m (1, 33, 130) and k (8, 72, 2248), f32 and bf16;
+     through its tool's measurement, timed beside its bound, T1 in bf16
+     and in f32; before them, T4 at ragged m (1, 33, 130) and k (8, 72,
+     2248), f32 and bf16; each T1 and T4 check names its route;
   10. the trainer (`train/trainer.Trainer`) on the run config
      `train_synthetic_stereodpnet_plus` as committed (f32, Adam, 2
      DataLoader workers, pinned memory), batch 4 at 768x576 crops, SyntheticDP
@@ -156,8 +158,9 @@ phase 10 fails unless its f32 Trainer turned both flags off from torch's
 defaults.
 Each phase prints its wall seconds (`phase_seconds`).
 Then one line sets K5's bf16 time beside cuDNN's faster layout and T1's
-beside the ConvBN3D + ReLU chain, summed over their shapes (a reading,
-not a check).
+beside the ConvBN3D + ReLU chain, summed over their shapes, and T1's and
+T4's f32 times beside cuDNN's and `torch.bmm`'s exact f32 (a reading, not
+a check).
 The line before the last is the `kernels` JSON with nine rows (launches:
 K1-K5 the train path's run of phase 7, `launches_serving` phase 5's,
 `launches_serving_exact` phase 5b's, `launches_train_bench` phase 7b's,
@@ -171,8 +174,13 @@ operation on the CUDA cores (`bound_ms`) and the split bound with the
 contractions as 3xTF32 on the tensor cores and the rest on the CUDA cores
 (`split_bound_ms`), launches per trainer step;
 T1-T4 the tools' measurements in phase 9, whose T rows sum the runs' times
-and bounds; K1-K5 also carry `device_ms`, phases 4-4c's time on the device
-alone); the last line is {"ok": true, "device": {...}}.
+and bounds (T1's and T4's the bf16 runs; T1's and T4's f32 route in an
+`f32_route` object as the K rows', at the tools' shapes: ms, device ms,
+plain ms, library ms (T1: cuDNN's exact f32 conv, the faster layout, and
+`chain_ms`, the f32 ConvBN3D + ReLU chain; T4: `torch.bmm` in exact f32),
+the CUDA-core and split bounds, launches); K1-K5 also carry `device_ms`,
+phases 4-4c's time on the device alone); the last line is {"ok": true,
+"device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -307,8 +315,12 @@ def print_build_report(report: dict) -> None:
                ("conv3d_dslice", "conv3d_3xtf32_kernel", 88): smem("conv3d_dslice", "dpf_conv3d_k3_3xtf32_smem_bytes")}
     dynamic.update({("conv3d_dslice_v2", "conv3d_tc_kernel", co):
                     smem("conv3d_dslice_v2", "dpf_conv3d_k3_affine_smem_bytes", co) for co in (32, 64)})
+    dynamic.update({("conv3d_dslice_v2", "conv3d_3xtf32_kernel", co):
+                    smem("conv3d_dslice_v2", "dpf_conv3d_k3_affine_3xtf32_smem_bytes", co) for co in (32, 64)})
     dynamic.update({("prims_dot", "dot_bf16_kernel", mt): smem("prims_dot", "dpf_batched_dot_smem_bytes", mt)
                     for mt in (1, 2)})
+    dynamic.update({("prims_dot", "dot_3xtf32_kernel", mt):
+                    smem("prims_dot", "dpf_batched_dot_3xtf32_smem_bytes", mt) for mt in (1, 2)})
     dynamic.update({("deform_conv3d_bwd", "deform_bwd_tc_kernel", cp):
                     smem("deform_conv3d_bwd", "dpf_deform_conv3d_bwd_tc_smem_bytes") for cp in (40, 64)})
     dynamic.update({("deform_conv3d_bwd", "deform_bwd_3xtf32_kernel", cp):
@@ -321,6 +333,8 @@ def print_build_report(report: dict) -> None:
     fsam = {(k, t, d) for k in ("fwd", "bwd") for t in ("f", "13__nv_bfloat16") for d in range(1, 17)}
     seen = set()
     for name, r in report.items():
+        for warning in re.findall(r".*Potential Performance Loss.*", r["log"]):
+            print(f"ptxas {name}: {warning.strip()}", flush=True)
         for f in ptxas_report(r["log"]):
             line = (f"ptxas {name}: {f['function']}: {f.get('registers')} registers, {f.get('static_smem')} bytes "
                     f"static smem, spill stores {f.get('spill_stores')} / loads {f.get('spill_loads')} bytes")
@@ -331,8 +345,9 @@ def print_build_report(report: dict) -> None:
                     line += f", dynamic smem {smem('fused_softargmin_bwd', 'dpf_fused_softargmin_bwd_smem_bytes', key[2])} bytes"
                 if f.get("spill_stores") != 0 or f.get("spill_loads") != 0:
                     fail(f"the K3/K4 kernel {f['function']} spills: {f}")
-            if m := re.search(r"(conv3d_tc_kernel|conv3d_3xtf32_kernel|dot_bf16_kernel|deform_bwd_tc_kernel|"
-                              r"deform_bwd_3xtf32_kernel|deform_fwd_tc_kernel|deform_fwd_3xtf32_kernel)ILi(\d+)E",
+            if m := re.search(r"(conv3d_tc_kernel|conv3d_3xtf32_kernel|dot_bf16_kernel|dot_3xtf32_kernel|"
+                              r"deform_bwd_tc_kernel|deform_bwd_3xtf32_kernel|deform_fwd_tc_kernel|"
+                              r"deform_fwd_3xtf32_kernel)ILi(\d+)E",
                               f["function"]):
                 key = (name, m.group(1), int(m.group(2)))
                 seen.add(key)
@@ -697,10 +712,10 @@ def check_edge_shapes(torch):
     """Phase 3c: K1, K5, T1 and K2 at the ragged `EDGE_SHAPES`, Cin 35 and
     64, bf16 and f32: K1 (both apertures, each route) and K5 (each route) within
     `REL_TOL`, T1 (Co 32 and 64, without and with the folded BatchNorm and
-    ReLU) within `bench_dslice_fold.excess_error`'s allowance, K2 (both
-    apertures, each route) within `BWD_TOL`."""
+    ReLU, each route) within `bench_dslice_fold.excess_error`'s allowance,
+    K2 (both apertures, each route) within `BWD_TOL`."""
+    from dualpixelface_tpu_torch.ops.kernels import conv3d_dslice_v2 as t1
     from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice, conv3d_dslice_plain, route
-    from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import COS
     from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
         bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain, deform_conv3d_fused, deform_conv3d_plain, fwd_route)
     from dualpixelface_tpu_torch.tools import bench_dslice_fold as fold
@@ -712,11 +727,11 @@ def check_edge_shapes(torch):
                 x, _, _, _, w_off, b_off = kernel_inputs(torch, gen, cin, dtype, shape)
                 compare(f"K5 conv3d_dslice [{route(dtype)}] {shape + (cin,)}", conv3d_dslice(x, w_off, b_off),
                         conv3d_dslice_plain(x, w_off, b_off), dname)
-                for co in COS:
+                for co in t1.COS:
                     for r in fold.check(fold.site_inputs(shape + (cin,), co, gen, dtype)):
-                        print(f"check T1 conv3d_dslice_v2 {shape + (cin,)} -> {co} {dname} ab={r['ab']} "
-                              f"relu={r['relu']}: max_abs_err {r['max_abs_err']:.3e}, worst error / allowance "
-                              f"{r['worst_ratio']:.3f}", flush=True)
+                        print(f"check T1 conv3d_dslice_v2 [{t1.route(dtype)}] {shape + (cin,)} -> {co} {dname} "
+                              f"ab={r['ab']} relu={r['relu']}: max_abs_err {r['max_abs_err']:.3e}, worst error / "
+                              f"allowance {r['worst_ratio']:.3f}", flush=True)
                         if not r["worst_ratio"] <= 1.0:
                             fail(f"T1 {shape + (cin,)} -> {co} {dname}: kernel disagrees with its plain version")
                 x, off, w, bias, _, _ = kernel_inputs(torch, gen, cin, dtype, shape, on_bound=True)
@@ -742,21 +757,30 @@ def tools_phase(torch):
 
     T2 and T3 must agree bit for bit (the same adds in the same order and
     dtype); T4 within 1e-4 of max(1, max|plain|) (f32 sums of up to 2248
-    exact products in another order), at the tool's runs and, first, at
-    ragged m and k with G = 64; T1 at the four stride-1 hourglass sites in
-    f32 and bf16, without and with the folded BatchNorm and ReLU, within
-    1e-4 of max(1, max|plain|) for the sums' order plus, in bf16, one ulp of
-    the output (both round one f32 value once). Each tool's inputs are
-    allocated once per shape and freed before the next."""
+    exact products in another order; in f32 3xTF32 products, as accurate),
+    at the tool's runs and, first, at ragged m and k with G = 64; T1 at the
+    four stride-1 hourglass sites in f32 and bf16, without and with the
+    folded BatchNorm and ReLU, within 1e-4 of max(1, max|plain|) for the
+    sums' order plus, in bf16, one ulp of the output (both round one f32
+    value once). A T row sums its bf16 runs (T2, T3: every run); T1's and
+    T4's f32 runs, their 3xTF32 route, go to the row's `f32_route` (ms,
+    device ms, plain ms, library ms, their work, launches, largest error).
+    Each tool's inputs are allocated once per shape and freed before the
+    next."""
+    from dualpixelface_tpu_torch.ops.kernels import conv3d_dslice_v2 as t1mod
     from dualpixelface_tpu_torch.ops.kernels import launch_counts, prims, reset_launch_counts
-    from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import conv3d_dslice_v2_plain
     from dualpixelface_tpu_torch.tools import bench_dslice_fold as fold
     from dualpixelface_tpu_torch.tools import bench_vpu_prims as vpu
-    from dualpixelface_tpu_torch.tools import cuda_ms
+    from dualpixelface_tpu_torch.tools import cuda_ms, device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0, "bound_ops_ms": 0.0,
                 "err": 0.0, "launches": 0, "runs": []} for k in ("T1", "T2", "T3", "T4")}
+    for k in ("T1", "T4"):
+        rows[k]["f32_route"] = {"route": "tensor_cores_3xtf32", "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                                "library_ms": 0.0, "flops_mma": 0.0, "bytes": 0.0, "launches": 0,
+                                "max_abs_err": 0.0, "runs": 0}
+    rows["T1"]["f32_route"]["chain_ms"] = 0.0
 
     def add(row, m, plain_ms, launches):
         row["ms"] += m["ms"]
@@ -768,29 +792,44 @@ def tools_phase(torch):
             row["library_ms"] = (row["library_ms"] or 0.0) + m["library_ms"]
         row["runs"].append(m)
 
+    def add_f32(row, ms, dev_ms, plain_ms, library_ms, flops, nbytes, launches, **more):
+        f = row["f32_route"]
+        for key, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                       ("flops_mma", flops), ("bytes", nbytes), ("launches", launches), ("runs", 1), *more.items()):
+            f[key] += v
+        row["launches"] += launches
+
+    def err_into(row, dtype, e):
+        key, d = ("max_abs_err", row["f32_route"]) if dtype == torch.float32 and "f32_route" in row else ("err", row)
+        d[key] = max(d[key], e)
+
     # T4 at ragged widths first (k * element size stays a multiple of 16
     # bytes, the kernel's granule); these launches precede the counted runs
     for dtype in (torch.float32, torch.bfloat16):
         for m, k in ((m, k) for m in (1, 33, 130) for k in (8, 72, 2248)):
             a = torch.randn((64, m, k), generator=gen, device="cuda").to(dtype)
             b = torch.randn((64, k, prims.DOT_N), generator=gen, device="cuda").to(dtype)
-            rows["T4"]["err"] = max(rows["T4"]["err"], compare(
-                f"T4 batched_dot [64, {m}, {k}] x [64, {k}, {prims.DOT_N}]", prims.batched_dot(a, b),
-                prims.batched_dot_plain(a, b), str(dtype).removeprefix("torch."), 1e-4))
+            err_into(rows["T4"], dtype, compare(
+                f"T4 batched_dot [{prims.dot_route(dtype)}] [64, {m}, {k}] x [64, {k}, {prims.DOT_N}]",
+                prims.batched_dot(a, b), prims.batched_dot_plain(a, b), str(dtype).removeprefix("torch."), 1e-4))
 
     for run in vpu.RUNS:
         inputs = run.inputs(gen)
         dname = str(run.dtype).removeprefix("torch.")
-        e = compare(f"{run.kernel_id} {run.label}", run.kernel(*inputs), run.plain(*inputs), dname,
-                    1e-4 if run.kind == "dot" else 0.0)
+        dot = run.kind == "dot"
+        name = f"{run.kernel_id} [{prims.dot_route(run.dtype)}] {run.label}" if dot else f"{run.kernel_id} {run.label}"
         row = rows[run.kernel_id]
-        row["err"] = max(row["err"], e)
+        err_into(row, run.dtype, compare(name, run.kernel(*inputs), run.plain(*inputs), dname, 1e-4 if dot else 0.0))
         plain_ms = cuda_ms(lambda: run.plain(*inputs), 2)
         reset_launch_counts()
         m = vpu.measure(run, inputs)
         n = launch_counts()[run.kernel_id]
         print(json.dumps({**m, "plain_ms": plain_ms, "launches": n}), flush=True)
-        add(row, m, plain_ms, n)
+        if dot and run.dtype == torch.float32:
+            add_f32(row, m["ms"], device_ms(lambda: run.kernel(*inputs), 5), plain_ms, m["library_ms"], m["ops"],
+                    m["bytes"], n)
+        else:
+            add(row, m, plain_ms, n)
         del inputs
         torch.cuda.empty_cache()
 
@@ -799,24 +838,27 @@ def tools_phase(torch):
         for dtype in (torch.float32, torch.bfloat16):
             inp = fold.site_inputs(shape, co, gen, dtype)
             for r in fold.check(inp):
-                print(f"check T1 conv3d_dslice_v2 {label} {dtype} ab={r['ab']} relu={r['relu']}: "
-                      f"max_abs_err {r['max_abs_err']:.3e}, worst error / allowance {r['worst_ratio']:.3f}",
-                      flush=True)
+                print(f"check T1 conv3d_dslice_v2 [{t1mod.route(dtype)}] {label} {dtype} ab={r['ab']} "
+                      f"relu={r['relu']}: max_abs_err {r['max_abs_err']:.3e}, worst error / allowance "
+                      f"{r['worst_ratio']:.3f}", flush=True)
                 if not r["worst_ratio"] <= 1.0:
                     fail(f"T1 {label} {dtype}: kernel disagrees with its plain version")
-                if dtype == torch.bfloat16:
-                    t1["err"] = max(t1["err"], r["max_abs_err"])
-            if dtype == torch.bfloat16:
-                plain_ms = cuda_ms(lambda: conv3d_dslice_v2_plain(inp["x"], inp["wmat"], inp["ab"], relu=True), 1)
-                reset_launch_counts()
-                m = fold.measure(label, inp)
-                n = launch_counts()["T1"]
-                print(json.dumps({**m, "plain_ms": plain_ms, "launches": n}), flush=True)
+                err_into(t1, dtype, r["max_abs_err"])
+            call = (inp["x"], inp["wmat"], inp["ab"])
+            plain_ms = cuda_ms(lambda: t1mod.conv3d_dslice_v2_plain(*call, relu=True), 1)
+            reset_launch_counts()
+            m = fold.measure(label, inp)
+            n = launch_counts()["T1"]
+            print(json.dumps({**m, "plain_ms": plain_ms, "launches": n}), flush=True)
+            if dtype == torch.float32:
+                add_f32(t1, m["t1_ms"], device_ms(lambda: t1mod.conv3d_dslice_v2(*call, relu=True), 5), plain_ms,
+                        m["cudnn_conv_ms"], m["flops"], m["bytes"], n, chain_ms=m["chain_ms"])
+            else:
                 add(t1, {**m, "ms": m["t1_ms"], "library_ms": m["cudnn_conv_ms"]}, plain_ms, n)
-            del inp
+            del inp, call
             torch.cuda.empty_cache()
     for k, row in rows.items():
-        if row["launches"] == 0:
+        if row["launches"] == 0 or row.get("f32_route", {}).get("launches", 1) == 0:
             fail(f"{k} was not launched by its tool's measurement")
     return rows
 
@@ -2318,11 +2360,13 @@ def main() -> int:
     print(json.dumps({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0}), flush=True)
     k5, t1 = timing["K5"], tools["T1"]
     chain_ms = sum(r["chain_ms"] for r in t1["runs"])
+    t1f, t4f = t1["f32_route"], tools["T4"]["f32_route"]
     print(json.dumps({"yardsticks": {
         "K5_bf16_ms": k5["ms"], "K5_cudnn_best_ms": k5["library_ms"],
         "K5_cudnn_layouts": [r["cudnn_layout"] for r in k5["runs"]], "K5_no_slower": k5["ms"] <= k5["library_ms"],
-        "T1_bf16_ms": t1["ms"], "T1_chain_ms": chain_ms, "T1_no_slower": t1["ms"] <= chain_ms, "card": card}}),
-        flush=True)
+        "T1_bf16_ms": t1["ms"], "T1_chain_ms": chain_ms, "T1_no_slower": t1["ms"] <= chain_ms,
+        "T1_f32_ms": t1f["ms"], "T1_f32_cudnn_ms": t1f["library_ms"], "T1_f32_chain_ms": t1f["chain_ms"],
+        "T4_f32_ms": t4f["ms"], "T4_f32_bmm_ms": t4f["library_ms"], "card": card}}), flush=True)
 
     kernels = []
     for k in ("K1", "K2", "K3", "K4", "K5"):
@@ -2366,6 +2410,15 @@ def main() -> int:
             "bound_by": "operations" if 2 * row["bound_ops_ms"] >= row["bound_ms"] else "bytes",
             "library_ms": row["library_ms"], "runs": len(row["runs"]),
         })
+        if "f32_route" in row:
+            # the tool's f32 runs: bound_ms with every operation on the
+            # CUDA cores, split_bound_ms with the products three times over
+            # as TF32 on the tensor cores
+            f = row["f32_route"]
+            f_ms, f_by = bound_ms(f["bytes"], (f["flops_mma"], PEAK_F32))
+            s_ms, s_by = bound_ms(f["bytes"], (3 * f["flops_mma"], PEAK_TF32))
+            kernels[-1]["f32_route"] = {**f, "bound_ms": f_ms, "bound_by": f_by, "split_bound_ms": s_ms,
+                                        "split_bound_by": s_by}
     print(json.dumps({"work": {k: {key: v for key, v in timing[k].items() if key.startswith(("flops", "bytes", "exps"))}
                                for k in timing}}), flush=True)
     print(card, flush=True)

@@ -8,123 +8,81 @@
 // :26-63): the hourglass's stride-1 ConvBN3D(+ReLU) sites, Co 32 and 64.
 // The TPU kernel's kw lane fold is a TPU layout and is not carried over.
 //
-// Bound on the H100: operations on the tensor cores. At the `dres*` site
-// (32 -> 32 on [4, 8, 192, 144], bf16) the product is 48.9 GFLOP (0.049 ms
-// at 989 TFLOP/s) against 113 MB (0.034 ms); on the CUDA cores in f32 the
-// same work cannot take less than 0.73 ms.
-// Design: K5's implicit GEMM over the flattened (tap, channel) axis, one
-// block per 128 output voxels and all Co output channels, with the epilogue
-// in registers, so the BatchNorm and ReLU cost no pass over device memory.
-//  * bf16 (every timed launch): the tensor-core tile of conv_tc.cuh, wgmma
-//    m64n32k16 / m64n64k16, N = Co; the wrapper pads x to a multiple of 8
-//    channels and packs the weight as [Co][Kp] with K contiguous.
-//  * f32: the SIMT tile of common.cuh (conv_voxels, load_conv_a_tile,
-//    load_b_tile, mma_tile), f32 FMA on the CUDA cores, which keeps the f32
-//    checks at 1e-4 (TF32 would not).
-#include "common.cuh"
+// Bound on the H100: operations on the tensor cores. At the four sites of
+// the tool (batch 4 at 768x576) the product is 174.3 GFLOP: in bf16 0.176
+// ms at 989 TFLOP/s; in f32, three TF32 passes at 495 TFLOP/s, 1.06 ms,
+// against about 0.63 GB (0.19 ms). On the CUDA cores the f32 work could
+// not take less than 2.6 ms.
+// Design: K5's implicit GEMM over the flattened (tap, channel) axis
+// (conv_tc.cuh), one block per 128 output voxels and all Co output
+// channels, with the epilogue in registers, so the BatchNorm and ReLU cost
+// no pass over device memory. The wrapper pads x's channels and packs the
+// weight as [Co][Kp] with K contiguous.
+//  * bf16: wgmma m64n32k16 / m64n64k16, x padded to a multiple of 8
+//    channels (`pack_conv3d`).
+//  * f32: split-TF32 (3xTF32), wgmma m64n32k8 / m64n64k8 three times a k
+//    slice on operands split into bit-masked TF32 halves (the weight's two
+//    planes [2][Co][Kp] from the wrapper, `pack_conv3d_3xtf32`; x split in
+//    registers as wgmma's register A), which keeps the f32 checks at 1e-4
+//    (one TF32 pass would not). x padded to a multiple of 4 channels. At Co
+//    32 each split A fragment feeds a third of K5's N, so the fragments'
+//    loads and splits weigh more against the MMAs than in K5; but the
+//    gather's instruction stream sets the pace (`tools.bench_t1_split`:
+//    without the products the kernel keeps about 60% of its time), so the
+//    Co 32 instantiation runs three blocks an SM to hide more of it.
 #include "conv_tc.cuh"
 
 namespace {
 
-using namespace dpf;
-
-template <int TN>
-__global__ void __launch_bounds__(NTHREADS)
-conv3d_affine_f32_kernel(const float* __restrict__ x, const float* __restrict__ wmat, const float* __restrict__ ab,
-                         float* __restrict__ out, int B, int D, int H, int W, int C, int relu) {
-  constexpr int CO = 16 * TN;
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][CO];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int M = B * D * H * W;
-  const int K = 27 * C;
-  const int m0 = blockIdx.x * BM;
-
-  int vm[TM], vd[TM], vh[TM], vw[TM];
-  conv_voxels(m0 + ty, D, H, W, vm, vd, vh, vw);
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_conv_a_tile<float>(As, x, vm, vd, vh, vw, k0, M, D, H, W, C, tx, ty);
-    load_b_tile<float, TN>(Bs, wmat, k0, min(BK, K - k0), CO, tid);
-    __syncthreads();
-    mma_tile<TN>(As, Bs, acc, tx, ty);
-    __syncthreads();
-  }
-
-  // epilogue: acc * a + b (two f32 roundings, not an FMA, as the plain
-  // version computes it), then ReLU
-  float ea[TN], eb[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    ea[j] = ab != nullptr ? ab[tx + 16 * j] : 1.0f;
-    eb[j] = ab != nullptr ? ab[CO + tx + 16 * j] : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      float v = acc[i][j];
-      if (ab != nullptr) v = __fadd_rn(__fmul_rn(v, ea[j]), eb[j]);
-      if (relu) v = fmaxf(v, 0.0f);
-      out[(size_t)m * CO + tx + 16 * j] = v;
-    }
-  }
+// acc * a + b (two f32 roundings, not an FMA, as the plain version
+// computes it), then the ReLU.
+__device__ __forceinline__ float affine_relu(float acc, const float* ab, int co, int relu, int n) {
+  float v = acc;
+  if (ab != nullptr) v = __fadd_rn(__fmul_rn(v, ab[n]), ab[co + n]);
+  if (relu) v = fmaxf(v, 0.0f);
+  return v;
 }
 
-// The same epilogue on the tensor-core tile, then the one rounding to bf16.
+// The epilogue on the bf16 route: then the one rounding to bf16.
 struct AffineEpilogue {
   const float* ab;  // [2][co] or null
   int co, relu;
   __device__ __forceinline__ __nv_bfloat16 operator()(float acc, int n) const {
-    float v = acc;
-    if (ab != nullptr) v = __fadd_rn(__fmul_rn(v, ab[n]), ab[co + n]);
-    if (relu) v = fmaxf(v, 0.0f);
-    return __float2bfloat16_rn(v);
+    return __float2bfloat16_rn(affine_relu(acc, ab, co, relu, n));
   }
 };
 
-template <int TN>
-void launch_f32(cudaStream_t s, const void* x, const void* w, const float* ab, void* out, int B, int D, int H, int W,
-                int C, int relu) {
-  const long long M = (long long)B * D * H * W;
-  conv3d_affine_f32_kernel<TN><<<(unsigned)((M + BM - 1) / BM), NTHREADS, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), ab, static_cast<float*>(out), B, D, H, W, C, relu);
-}
+// The epilogue on the f32 route, stored as it is.
+struct F32AffineEpilogue {
+  const float* ab;  // [2][co] or null
+  int co, relu;
+  __device__ __forceinline__ float operator()(float acc, int n) const { return affine_relu(acc, ab, co, relu, n); }
+};
 
 }  // namespace
 
-// f32 (is_bf16 0): x [B, D, H, W, C], wmat [27*C, Co] ((kd, kh, kw, c)
-// rows). bf16 (is_bf16 1): x with C % 8 == 0, wmat the packed [Co][Kp] (row
-// n, column tap * C + c, Kp = 27 C rounded up to 64). ab [2, Co] f32 (a then
-// b) or null; out [B, D, H, W, Co]; all contiguous. Returns
-// cudaErrorInvalidValue for Co other than 32 or 64 or a bf16 C % 8 != 0,
-// else the launch's error.
+// x [B, D, H, W, C], wmat the packed weight: bf16 (is_bf16 1) [Co][Kp]
+// (row n, column tap * C + c, Kp = 27 C rounded up to 64), C % 8 == 0; f32
+// (is_bf16 0) its two TF32 planes [2][Co][Kp] (hi, lo; Kp rounded up to
+// 32), C % 4 == 0. ab [2, Co] f32 (a then b) or null; out [B, D, H, W, Co]
+// in x's dtype; all contiguous. Returns cudaErrorInvalidValue for Co other
+// than 32 or 64 or C off its multiple, else the launch's error.
 extern "C" int dpf_conv3d_k3_affine(const void* x, const void* wmat, const void* ab, void* out, int B, int D,
                                     int H, int W, int C, int Co, int relu, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* abf = static_cast<const float*>(ab);
-  if (Co != 32 && Co != 64) return (int)cudaErrorInvalidValue;
+  if ((Co != 32 && Co != 64) || C % (is_bf16 ? 8 : 4) != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    if (C % 8 != 0) return (int)cudaErrorInvalidValue;
     const AffineEpilogue epi{abf, Co, relu};
     if (Co == 32) return dpf::tc::launch_conv3d_tc<32>(x, wmat, out, epi, B, D, H, W, C, Co, s);
     return dpf::tc::launch_conv3d_tc<64>(x, wmat, out, epi, B, D, H, W, C, Co, s);
   }
-  if (Co == 32)
-    launch_f32<2>(s, x, wmat, abf, out, B, D, H, W, C, relu);
-  else
-    launch_f32<4>(s, x, wmat, abf, out, B, D, H, W, C, relu);
-  return (int)cudaGetLastError();
+  const F32AffineEpilogue epi{abf, Co, relu};
+  if (Co == 32) return dpf::tc::launch_conv3d_3xtf32<32>(x, wmat, out, epi, B, D, H, W, C, Co, s);
+  return dpf::tc::launch_conv3d_3xtf32<64>(x, wmat, out, epi, B, D, H, W, C, Co, s);
 }
 
-// The dynamic shared memory of a bf16 block for Co output channels, in
-// bytes (the build log shows only the static part).
+// The dynamic shared memory of a block for Co output channels (bf16, f32),
+// in bytes (the build log shows only the static part).
 extern "C" int dpf_conv3d_k3_affine_smem_bytes(int Co) { return dpf::tc::smem_bytes(Co); }
+extern "C" int dpf_conv3d_k3_affine_3xtf32_smem_bytes(int Co) { return dpf::tc::smem_bytes_3xtf32(Co); }

@@ -27,7 +27,8 @@
 // The output goes through shared memory: the block's BM x Co outputs are
 // one contiguous span of `out`, written in 16-byte stores whatever Co.
 //
-// f32 (K5's f32 route; K2's and K1's f32 routes take the TF32 MMA and the split):
+// f32 (the f32 routes of K5 and T1; those of K1, K2 and T4 take the TF32
+// MMA and the split):
 // the same tile on f32 elements as split-TF32 (3xTF32) products. A 16-byte
 // granule is 4 channels (C % 4 == 0), a 128-byte swizzle row BK32 = 32 f32
 // K-elements, and a wgmma k8 TF32 slice 32 bytes of a row, so the gather,
@@ -40,8 +41,9 @@
 // two planes [N][Kp] (hi, lo); A arrives raw by cp.async and is split in
 // registers, feeding wgmma's register A operand (TF32 wgmma has no
 // transpose flags: both operands K-major). A stage is 16 KB of A and 2 x N
-// x 128 bytes of B; two stages (78 KB at N = 88) let two blocks share an
-// SM, and the next stage's loads are issued before this one's MMAs.
+// x 128 bytes of B; two stages (78 KB at N = 88, 49 KB at 32, 65 KB at
+// 64) let two or three blocks share an SM, and the next stage's loads are
+// issued before this one's MMAs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -173,6 +175,18 @@ template <int TA, int TB> struct Wgmma<88, TA, TB> {
 // column lane % 4 + 4 (q >> 1) of the warp's 16 rows) * B (8 x N, TF32,
 // K-major, descriptor b), f32 accumulation.
 template <int N> struct Wgmma32;
+template <> struct Wgmma32<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
 template <> struct Wgmma32<40> {
   static __device__ __forceinline__ void mma(float (&d)[20], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
@@ -490,9 +504,12 @@ int launch_conv3d_tc(const void* x, const void* wpk, void* out, const Epi& epi, 
   return (int)cudaGetLastError();
 }
 
-// The f32 kernel: one block per BM voxels, in voxel order; two blocks an SM.
+// The f32 kernel: one block per BM voxels, in voxel order; two blocks an
+// SM, three at N = 32 (168 registers a thread: T1's Co 32 sites, whose
+// gather, not the products, sets the pace, so more warps hide more of its
+// latency; at N = 64 168 registers spill).
 template <int N, class Epi>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, N == 32 ? 3 : 2)
 conv3d_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ wpk, float* __restrict__ out, Epi epi,
                      int M, int D, int H, int W, int C, int Co) {
   extern __shared__ uint8_t smem_raw[];

@@ -30,8 +30,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from dualpixelface_tpu_torch.ops.kernels import _build
-from dualpixelface_tpu_torch.ops.kernels.split_f32 import split_planes
+from dualpixelface_tpu_torch.ops.kernels import _build, split_f32
 
 CO = 81  # the kernel's output channels: the deform offset heads' 3 x 27, its only caller
 N_PAD = 88  # CO padded to eleven n8 tiles: the tensor-core kernel's N
@@ -65,17 +64,13 @@ def pack_conv3d_3xtf32(x: torch.Tensor, weight: torch.Tensor, n_pad: int) -> tup
     the packed weight [n_pad, Kp] (Kp a multiple of BK_F32) split into its
     two TF32 planes [2, n_pad, Kp] (hi, lo; `split_f32.split_planes`)."""
     x, wt = pack_conv3d(x, weight, n_pad, 4, BK_F32)  # a 16-byte granule of x: 4 f32 channels
-    return x, split_planes(wt)
+    return x, split_f32.split_planes(wt)
 
 
 def route(dtype: torch.dtype) -> str:
     """K5's kernel route for a dtype: "tensor_cores" (bf16 `wgmma`) or
     "tensor_cores_3xtf32" (f32: split-TF32 `wgmma`)."""
-    if dtype == torch.bfloat16:
-        return "tensor_cores"
-    if dtype == torch.float32:
-        return "tensor_cores_3xtf32"
-    raise TypeError(f"conv3d_dslice: no kernel for dtype {dtype}")
+    return split_f32.route("conv3d_dslice", dtype)
 
 
 def conv3d_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,11 @@ Replaces the TPU kernel `conv3d_dslice_v2` -> `_conv3d_call_v2` /
 calls: it is measured against the library's conv + BatchNorm + ReLU chain
 by `dualpixelface_tpu_torch.tools.bench_dslice_fold`. The CUDA kernel
 (`csrc/conv3d_dslice_v2.cu`) is K5's implicit GEMM at the hourglass widths
-(Co 32 and 64) with the epilogue in registers, on the tensor cores for bf16
-(operands laid out by K5's `pack_conv3d`) and the CUDA cores for f32; what
-bounds it and how its design meets that is in the source note there.
+(Co 32 and 64) with the epilogue in registers, on the tensor cores in both
+dtypes (`route`): bf16 products for bf16 (operands laid out by K5's
+`pack_conv3d`), split-TF32 (3xTF32) ones for f32, which keep IEEE f32's
+accuracy (`pack_conv3d_3xtf32`, `split_f32.py`); what bounds it and how
+its design meets that is in the source note there.
 
 The forward computes what `_kernel_v2` computes: the f32 accumulator,
 then `acc * a + b` in f32 (ab = [a; b], [2, Co] f32), then the ReLU, then
@@ -35,10 +37,17 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from dualpixelface_tpu_torch.ops.kernels import _build
-from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice_bwd, conv3d_f32, pack_conv3d
+from dualpixelface_tpu_torch.ops.kernels import _build, split_f32
+from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import (
+    conv3d_dslice_bwd, conv3d_f32, pack_conv3d, pack_conv3d_3xtf32)
 
 COS = (32, 64)  # the kernel's output widths: the hourglass's stride-1 sites
+
+
+def route(dtype: torch.dtype) -> str:
+    """T1's kernel route for a dtype: "tensor_cores" (bf16 `wgmma`) or
+    "tensor_cores_3xtf32" (f32: split-TF32 `wgmma`)."""
+    return split_f32.route("conv3d_dslice_v2", dtype)
 
 
 def conv3d_dslice_v2_plain(x: torch.Tensor, wmat: torch.Tensor, ab: torch.Tensor | None = None,
@@ -98,7 +107,8 @@ def conv3d_dslice_v2(x: torch.Tensor, wmat: torch.Tensor, ab: torch.Tensor | Non
                      relu: bool = False) -> torch.Tensor:
     """3x3x3 pad-1 conv with the affine + ReLU epilogue, NDHWC,
     differentiable in x, wmat and ab. CPU tensors: the plain version. CUDA
-    tensors: the T1 kernel, or an error."""
+    tensors: the T1 kernel (bf16: bf16 `wgmma`; f32: 3xTF32 `wgmma`), or an
+    error."""
     if x.ndim != 5 or wmat.shape[:4] != (3, 3, 3, x.shape[-1]):
         raise ValueError(f"conv3d_dslice_v2: x {tuple(x.shape)} / wmat {tuple(wmat.shape)} "
                          "must be [B, D, H, W, C] / [3, 3, 3, C, Co]")
@@ -126,8 +136,7 @@ def _forward(x, wmat, ab, relu):
     fn = _build.entry("conv3d_dslice_v2", "dpf_conv3d_k3_affine",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        x, wmat = pack_conv3d(x, wmat, co)
+    x, wmat = pack_conv3d(x, wmat, co) if bf16 else pack_conv3d_3xtf32(x, wmat, co)
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), wmat.data_ptr(), None if ab is None else ab.data_ptr(), out.data_ptr(),
             b, d, h, w, x.shape[-1], co, int(relu), int(bf16), _build.current_stream(x.device))

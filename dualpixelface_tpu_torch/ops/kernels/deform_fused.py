@@ -39,8 +39,7 @@ import math
 
 import torch
 
-from dualpixelface_tpu_torch.ops.kernels import _build
-from dualpixelface_tpu_torch.ops.kernels.split_f32 import split_planes
+from dualpixelface_tpu_torch.ops.kernels import _build, split_f32
 
 AP = 3               # aperture: +-AP voxels around the output voxel (H, W)
 EPS = 1.0 / 1024.0
@@ -125,21 +124,13 @@ def deform_conv3d_bwd_plain(x, offset, weight, bias, g, aperture=False):
     return tuple(grads) + ((None,) if bias is None else ())
 
 
-def _route(name: str, dtype: torch.dtype, f32_route: str) -> str:
-    if dtype == torch.bfloat16:
-        return "tensor_cores"
-    if dtype == torch.float32:
-        return f32_route
-    raise TypeError(f"{name}: no kernel for dtype {dtype}")
-
-
 def fwd_route(dtype: torch.dtype) -> str:
     """K1's kernel for a dtype: "tensor_cores" (bf16: the `wgmma`
     contraction, serving and the bf16 train path's forward) or
     "tensor_cores_3xtf32" (f32, the committed run configs and the f32
     Predictor: the same contraction in split-TF32, f32-accurate). Both take
     either aperture."""
-    return _route("deform_conv3d_fused", dtype, "tensor_cores_3xtf32")
+    return split_f32.route("deform_conv3d_fused", dtype)
 
 
 def bwd_route(dtype: torch.dtype) -> str:
@@ -147,7 +138,7 @@ def bwd_route(dtype: torch.dtype) -> str:
     the bf16 train path) or "tensor_cores_3xtf32" (f32, the committed run
     configs: the same contractions in split-TF32, f32-accurate). Both take
     either aperture."""
-    return _route("deform_conv3d_bwd", dtype, "tensor_cores_3xtf32")
+    return split_f32.route("deform_conv3d_bwd", dtype)
 
 
 def bwd_plan(shape, dtype: torch.dtype, sms: int) -> tuple[str, int, int]:
@@ -191,7 +182,7 @@ def pack_deform_bwd_3xtf32(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch
     """K2's f32 operands: `pack_deform_bwd`'s, the weight rows split into
     their two TF32 planes [2, 27, CP, Co] (hi, lo; `split_f32.split_planes`)."""
     xp, wpk = pack_deform_bwd(x, weight)
-    return xp, split_planes(wpk)
+    return xp, split_f32.split_planes(wpk)
 
 
 def fwd_weight_rows(c: int) -> int:
@@ -215,7 +206,7 @@ def pack_deform_fwd_3xtf32(x: torch.Tensor, weight: torch.Tensor) -> tuple[torch
     [2, 27, Co, CP] (hi, lo; `split_f32.split_planes`). CP is a whole
     number of the TF32 K step of 8, so no rows are added."""
     xp, wpk = pack_deform_bwd(x, weight)
-    return xp, split_planes(wpk.transpose(1, 2))
+    return xp, split_f32.split_planes(wpk.transpose(1, 2))
 
 
 def _check_inputs(name, x, offset, weight):

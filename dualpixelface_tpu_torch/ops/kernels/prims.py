@@ -9,7 +9,9 @@ Replace the TPU kernels of `tools/bench_vpu_prims.py`:
   * T3 `transpose_sum` <- `transpose_bench` (`csrc/prims_transpose.cu`):
     8 slabs [128, 80] transposed to [80, 128] and summed;
   * T4 `batched_dot` <- `dot_bench` (`csrc/prims_dot.cu`): a per-g product
-    [m, k] x [k, 64] with f32 sums.
+    [m, k] x [k, 64] with f32 sums, on the tensor cores in both dtypes
+    (`dot_route`): bf16 products for bf16, split-TF32 (3xTF32) ones for
+    f32, which keep IEEE f32's accuracy (`split_f32.py`).
 
 What bounds each on the H100 and how its design meets that is in its
 source note. T2 and T3 add in the data dtype, rounding after each add in
@@ -25,7 +27,7 @@ import ctypes
 
 import torch
 
-from dualpixelface_tpu_torch.ops.kernels import _build
+from dualpixelface_tpu_torch.ops.kernels import _build, split_f32
 
 LANES = 128   # T2: table row width; T3: slab rows
 REPS = 8      # T2: index rows per g; T3: slabs per g
@@ -61,6 +63,12 @@ def batched_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [G, m, k], b [G, k, n] -> a @ b in f32 (the inputs widened to f32,
     where a bf16 product is exact)."""
     return torch.bmm(a.float(), b.float())
+
+
+def dot_route(dtype: torch.dtype) -> str:
+    """T4's kernel route for a dtype: "tensor_cores" (bf16 `wgmma`) or
+    "tensor_cores_3xtf32" (f32: split-TF32 `wgmma`)."""
+    return split_f32.route("batched_dot", dtype)
 
 
 def _check_rank(name, ndim, **tensors):
@@ -122,8 +130,8 @@ def transpose_sum(x: torch.Tensor) -> torch.Tensor:
 def batched_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """T4. a [G, m, k], b [G, k, n], one dtype (f32 or bf16) -> [G, m, n]
     f32. CPU tensors: the plain version. CUDA tensors: the kernel (n = 64,
-    rows of k * element size a multiple of 16 bytes: the TMA's and
-    cp.async's granule), or an error."""
+    rows of k * element size a multiple of 16 bytes: the TMA's granule;
+    bf16: bf16 `wgmma`, f32: 3xTF32 `wgmma`), or an error."""
     _check_rank("batched_dot", 3, a=a, b=b)
     g, m, k = a.shape
     if b.shape[:2] != (g, k):

@@ -1,9 +1,11 @@
-"""The split-TF32 (3xTF32) arithmetic of the f32 routes of K5, K2 and K1.
+"""The split-TF32 (3xTF32) arithmetic of the f32 routes of every kernel
+with a contraction: K5, K2, K1, T1 and T4.
 
 The tensor cores take f32 operands only as TF32 (10 explicit mantissa
 bits). The f32 routes of `csrc/conv3d_dslice.cu` (K5),
-`csrc/deform_conv3d_bwd.cu` (K2) and `csrc/deform_conv3d.cu` (K1) keep
-f32's accuracy by splitting each f32 operand a into two TF32 halves, both
+`csrc/deform_conv3d_bwd.cu` (K2), `csrc/deform_conv3d.cu` (K1),
+`csrc/conv3d_dslice_v2.cu` (T1) and `csrc/prims_dot.cu` (T4) keep f32's
+accuracy by splitting each f32 operand a into two TF32 halves, both
 bit-masked, never rounded:
 
     hi = a with its low 13 bits cleared
@@ -15,10 +17,12 @@ of the result, is left out). Each product of two TF32 values is exact in
 f32, so `product_3xtf32` below predicts every product term of the card bit
 for bit; only the order of the f32 sums differs.
 
-`split_tf32` is the wrappers' weight split (the weight planes the kernels
-read). `product_3xtf32` and `product_1xtf32` are the plain versions of the
-arithmetic, for the CPU tests (`tests/test_torch_split_f32.py`): nothing on
-the kernels' path calls them.
+`route` names a kernel's route for a dtype, the same for all five.
+`split_tf32` is the wrappers' weight split (the weight planes K5, K2, K1
+and T1 read; T4 splits both operands in the kernel). `product_3xtf32`
+and `product_1xtf32` are the plain versions of the arithmetic, for the
+CPU tests (`tests/test_torch_split_f32.py`): nothing on the kernels' path
+calls them.
 """
 from __future__ import annotations
 
@@ -26,6 +30,17 @@ import torch
 
 # 0xffffe000 as an int32: clears the 13 mantissa bits TF32 does not keep
 TF32_MASK = -(1 << 13)
+
+
+def route(name: str, dtype: torch.dtype) -> str:
+    """The route of kernel `name` for a dtype: "tensor_cores" (bf16
+    `wgmma`) or "tensor_cores_3xtf32" (f32: split-TF32 `wgmma`); any other
+    dtype raises."""
+    if dtype == torch.bfloat16:
+        return "tensor_cores"
+    if dtype == torch.float32:
+        return "tensor_cores_3xtf32"
+    raise TypeError(f"{name}: no kernel for dtype {dtype}")
 
 
 def tf32_bits(a: torch.Tensor) -> torch.Tensor:

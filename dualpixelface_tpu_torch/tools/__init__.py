@@ -4,10 +4,11 @@ kernels, on the card:
     python3 -m dualpixelface_tpu_torch.tools.bench_vpu_prims    # T2-T4 (tools/bench_vpu_prims.py)
     python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold  # T1 (tools/bench_dslice_fold.py --module convbn)
 
-and of the port's own: `bench_k2_split`, `bench_k1_split` and
-`bench_k4_split`, where K2's, K1's and K4's time goes (builds of each that
-leave one part out), and `bench_softargmin`, K3's and K4's device time in
-this tree or another. All
+and of the port's own: `bench_k2_split`, `bench_k1_split`,
+`bench_k4_split` and `bench_t1_split`, where K2's, K1's, K4's and T1's f32
+time goes (builds of each that leave one part out), `bench_softargmin`,
+K3's and K4's device time in this tree or another, and `bench_tools_f32`,
+T1's and T4's f32 routes in this tree or another. All
 need a GPU and fail without one. Shared here: the H100's peak rates and the
 timing and bound helpers."""
 from __future__ import annotations

@@ -5,7 +5,8 @@ the port's eval ConvBN3D + ReLU chain, on the card: the counterpart of
     python3 -m dualpixelface_tpu_torch.tools.bench_dslice_fold [--site dres]
 
 At each stride-1 site of the JAX tool's `SITES` that T1 serves (the Co-81
-offset heads are K5's), batch 4 at 768x576, bf16, seeded weights and
+offset heads are K5's), batch 4 at 768x576, in bf16 and then in f32 (T1's
+3xTF32 route; cuDNN with TF32 off, so in exact f32), seeded weights and
 BatchNorm statistics, it times with CUDA events over ITERS launches
 after one warm-up launch, in turns (T1, chain, conv NCDHW, conv
 channels_last_3d, and back):
@@ -18,9 +19,13 @@ channels_last_3d, and back):
     faster is `cudnn_conv_ms`;
 
 and checks T1 against its plain version without and with the folded
-BatchNorm and ReLU (`check`). One JSON line per site,
-after the card's name and power limit. No model path calls T1: the
-BatchNorm fold lives here, as in the JAX package. Needs a GPU.
+BatchNorm and ReLU (`check`). Each time stands beside the bound of the
+dtype's route (`bound_ms`: bf16 at the bf16 tensor-core peak, f32 with
+every operation on the CUDA cores) and, in f32, the split bound
+(`split_bound_ms`: the product three times over as TF32 on the tensor
+cores). One JSON line per site and dtype, after the card's name and power
+limit. No model path calls T1: the BatchNorm fold lives here, as in the
+JAX package. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -31,8 +36,9 @@ import math
 import torch
 
 from dualpixelface_tpu_torch.ops.blocks import ConvBN3D
-from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import conv3d_dslice_v2, conv3d_dslice_v2_plain
-from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, bound_ms, cuda_ms, cudnn_conv3d_calls, require_cuda
+from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import conv3d_dslice_v2, conv3d_dslice_v2_plain, route
+from dualpixelface_tpu_torch.tools import (
+    PEAK_BF16, PEAK_F32, PEAK_TF32, bound_ms, cuda_ms, cudnn_conv3d_calls, require_cuda)
 
 ITERS = 10
 SEED = 0
@@ -97,15 +103,19 @@ def measure(label: str, inp: dict) -> dict:
               "chain", "t1"):
         times[k].append(cuda_ms(fns[k], ITERS))
     w = work(inp)
-    b_ms, b_by = bound_ms(w["bytes"], (w["flops"], PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_F32))
+    f32 = x.dtype == torch.float32
+    b_ms, b_by = bound_ms(w["bytes"], (w["flops"], PEAK_F32 if f32 else PEAK_BF16))
     ms = {k: sum(v) / len(v) for k, v in times.items()}
     layout = min(("ncdhw", "channels_last_3d"), key=lambda k: ms[f"cudnn_{k}"])
-    return {"site": label, "shape": list(x.shape), "co": wmat.shape[-1], "dtype": str(x.dtype),
-            "t1_ms": ms["t1"], "chain_ms": ms["chain"], "cudnn_conv_ms": ms[f"cudnn_{layout}"],
-            "cudnn_layout": layout, "cudnn_ncdhw_ms": ms["cudnn_ncdhw"],
-            "cudnn_channels_last_3d_ms": ms["cudnn_channels_last_3d"], "t1_over_chain": ms["t1"] / ms["chain"],
-            "t1_tflops": w["flops"] / ms["t1"] / 1e9, "readings_ms": times, "bound_ms": b_ms, "bound_by": b_by,
-            "simt_f32_bound_ms": w["flops"] / PEAK_F32 * 1e3, "flops": w["flops"], "bytes": w["bytes"]}
+    res = {"site": label, "shape": list(x.shape), "co": wmat.shape[-1], "dtype": str(x.dtype),
+           "route": route(x.dtype), "t1_ms": ms["t1"], "chain_ms": ms["chain"], "cudnn_conv_ms": ms[f"cudnn_{layout}"],
+           "cudnn_layout": layout, "cudnn_ncdhw_ms": ms["cudnn_ncdhw"],
+           "cudnn_channels_last_3d_ms": ms["cudnn_channels_last_3d"], "t1_over_chain": ms["t1"] / ms["chain"],
+           "t1_tflops": w["flops"] / ms["t1"] / 1e9, "readings_ms": times, "bound_ms": b_ms, "bound_by": b_by,
+           "flops": w["flops"], "bytes": w["bytes"]}
+    if f32:  # the route's product, three times over as TF32
+        res["split_bound_ms"], res["split_bound_by"] = bound_ms(w["bytes"], (3 * w["flops"], PEAK_TF32))
+    return res
 
 
 def check(inp: dict) -> list[dict]:
@@ -147,13 +157,14 @@ def main() -> int:
     for label, shape, co in SITES:
         if wanted and not any(s in label for s in wanted):
             continue
-        inp = site_inputs(shape, co, gen)
-        res = {**measure(label, inp), "checks": check(inp)}
-        print(json.dumps(res), flush=True)
-        if any(c["worst_ratio"] > 1.0 for c in res["checks"]):
-            raise SystemExit(f"{label}: T1 disagrees with its plain version")
-        del inp
-        torch.cuda.empty_cache()
+        for dtype in (torch.bfloat16, torch.float32):
+            inp = site_inputs(shape, co, gen, dtype)
+            res = {**measure(label, inp), "checks": check(inp)}
+            print(json.dumps(res), flush=True)
+            if any(c["worst_ratio"] > 1.0 for c in res["checks"]):
+                raise SystemExit(f"{label} {dtype}: T1 disagrees with its plain version")
+            del inp
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -15,8 +15,11 @@ Inputs come from a seeded `torch.Generator` on the card. Each run is timed
 with CUDA events over ITERS launches after one warm-up launch and printed
 as one JSON line in the JAX tool's terms (ms, G elem/s or TFLOP/s) with
 its bound and, for T4, the time of `torch.bmm` on the same inputs (which
-the port never calls; in bf16 it rounds its output to bf16). The card's
-name and power limit come first. Needs a GPU.
+the port never calls; in bf16 it rounds its output to bf16; in f32 it runs
+with TF32 off, in exact f32). T4's f32 run also gives its split bound
+(`split_bound_ms`: its route's products three times over as TF32 on the
+tensor cores; `bound_ms` puts them on the CUDA cores). The card's name and
+power limit come first. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from dualpixelface_tpu_torch.ops.kernels import prims
-from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, bound_ms, cuda_ms, require_cuda
+from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, PEAK_TF32, bound_ms, cuda_ms, require_cuda
 
 GRID = 4096
 ITERS = 10
@@ -119,9 +122,12 @@ def measure(run: Run, inputs: tuple) -> dict:
     w = run.work(inputs)
     b_ms, b_by = bound_ms(w["bytes"], (w["ops"], w["peak"]))
     lib = cuda_ms(lambda: torch.bmm(*inputs), ITERS) if run.kind == "dot" else None
-    return {"run": run.label, "kernel": run.kernel_id, "ms": ms,
-            w["rate_name"]: w["rate_units"] / (ms * 1e-3) / w["rate_scale"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "bytes": w["bytes"], "ops": w["ops"]}
+    res = {"run": run.label, "kernel": run.kernel_id, "ms": ms,
+           w["rate_name"]: w["rate_units"] / (ms * 1e-3) / w["rate_scale"], "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": lib, "bytes": w["bytes"], "ops": w["ops"]}
+    if run.kind == "dot" and run.dtype == torch.float32:  # the route's products, three times over as TF32
+        res["split_bound_ms"], res["split_bound_by"] = bound_ms(w["bytes"], (3 * w["ops"], PEAK_TF32))
+    return res
 
 
 def main() -> int:

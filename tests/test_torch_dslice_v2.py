@@ -8,7 +8,8 @@ interpret mode, with and without `ab` and the ReLU, including ragged D/H
 blocks and channel counts off the tiles; the gradient against `jax.vjp`
 of `conv3d_dslice_v2`, which on the CPU differentiates the XLA twin, as on
 the TPU. On the CPU the wrapper runs its plain version; the CUDA kernel is
-held against it on the card by `chip_smoke.py`.
+held against it on the card by `chip_smoke.py`. The f32 route's 3xTF32
+arithmetic on its packed operands is emulated against the plain version.
 """
 import importlib.util
 import os
@@ -18,8 +19,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import conv3d_dslice_v2
+from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import pack_conv3d_3xtf32
+from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice_v2 import COS, conv3d_dslice_v2, conv3d_dslice_v2_plain, route
+from dualpixelface_tpu_torch.ops.kernels.split_f32 import product_3xtf32, split_planes
+from dualpixelface_tpu_torch.tools.bench_dslice_fold import excess_error
 from torch_cpu_setup import two_threads
 
 two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
@@ -124,3 +129,60 @@ def test_gradient_at_relu_tie_is_half(attic):
     for name, a, r in zip(("gx", "gw", "gab"), got, ref):
         scale = max(1.0, float(np.abs(r).max()))
         np.testing.assert_allclose(a, r, rtol=0, atol=1e-5 * scale, err_msg=name)
+
+
+def _im2col(x):
+    """x [B, D, H, W, C] -> the 3x3x3 pad-1 windows [voxels, 27 C], column
+    tap * C + c (the kernel's K order)."""
+    b, d, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    taps = [xp[:, kd:kd + d, kh:kh + h, kw:kw + w] for kd in range(3) for kh in range(3) for kw in range(3)]
+    return torch.cat(taps, dim=-1).reshape(-1, 27 * c)
+
+
+@pytest.mark.parametrize("co", COS)
+def test_f32_route_arithmetic_matches_the_plain_version(co):
+    """The f32 route as the kernel computes it, emulated: x padded to 36
+    channels and the weight packed into its two TF32 planes [2, Co, Kp] by
+    `pack_conv3d_3xtf32` at n_pad = Co, the windows times the planes in
+    3xTF32 (`product_3xtf32`, whose split of hi + lo gives the planes back),
+    then the affine and the ReLU in f32: within T1's f32 allowance of the
+    plain version (`bench_dslice_fold.excess_error`, as on the card)."""
+    shape = (2, 3, 6, 5, 35)
+    x, wm, ab = (torch.from_numpy(a) for a in _inputs(9, shape, co))
+    xp, planes = pack_conv3d_3xtf32(x, wm, co)
+    kp = planes.shape[-1]
+    assert xp.shape[-1] == 36 and planes.shape == (2, co, kp) and kp % 32 == 0 and kp >= 27 * 36
+    wt = planes[0] + planes[1]
+    assert torch.equal(split_planes(wt), planes)
+    cols = F.pad(_im2col(xp), (0, kp - 27 * 36))
+    acc = product_3xtf32(cols, wt.t()).reshape(shape[:-1] + (co,))
+    got = torch.clamp_min(acc * ab[0] + ab[1], 0.0)
+    ref = conv3d_dslice_v2_plain(x, wm, ab, relu=True)
+    assert (ref == 0).float().mean() > 0.2
+    assert excess_error(got, ref, torch.float32)["worst_ratio"] <= 1.0
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "tensor_cores"), (torch.float32, "tensor_cores_3xtf32"),
+                                        (torch.float16, None)])
+def test_route_follows_the_dtype(dtype, name):
+    if name is None:
+        with pytest.raises(TypeError):
+            route(dtype)
+    else:
+        assert route(dtype) == name
+
+
+def test_split_tool_patches_the_f32_tile():
+    """`tools.bench_t1_split` compiles parts of T1's f32 route out by
+    patching the tile it inlines: every text it patches is in `conv_tc.cuh`
+    exactly once, the tile replaces the include, and each variant's macro
+    lands in the patched source."""
+    from dualpixelface_tpu_torch.tools import bench_t1_split as split
+
+    source = split.patched()
+    assert '#include "conv_tc.cuh"' not in source and "conv_mainloop_3xtf32" in source
+    for flags in split.VARIANTS.values():
+        for flag in flags:
+            assert flag.removeprefix("-D") in source, flag
+    assert "h < 2 * !NO_CONTRACTION_FLAG; ++h) mma_3xtf32<N>(" in source

@@ -22,7 +22,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from dualpixelface_tpu_torch.ops.kernels import launch_counts
-from dualpixelface_tpu_torch.ops.kernels.prims import batched_dot, lane_gather_sum, transpose_sum
+from dualpixelface_tpu_torch.ops.kernels.prims import batched_dot, dot_route, lane_gather_sum, transpose_sum
 from torch_cpu_setup import two_threads
 
 two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
@@ -165,6 +165,16 @@ def test_lane_gather_sum_takes_indices_modulo_128(dtype):
                                lane_gather_sum(tab, idx.to(index_dtype)), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "tensor_cores"), (torch.float32, "tensor_cores_3xtf32"),
+                                        (torch.float16, None)])
+def test_dot_route_follows_the_dtype(dtype, name):
+    if name is None:
+        with pytest.raises(TypeError):
+            dot_route(dtype)
+    else:
+        assert dot_route(dtype) == name
+
+
 def test_bench_vpu_prims_counts_the_bytes_each_run_moves(monkeypatch):
     """Each run's bytes are its inputs read once and its output written
     once, counted from the shapes without a launch."""
@@ -199,7 +209,7 @@ def test_bench_dslice_fold_checks_both_epilogues():
 
 
 @pytest.mark.parametrize("tool", ["bench_vpu_prims", "bench_dslice_fold", "bench_k2_split", "bench_k1_split",
-                                  "bench_k4_split", "bench_softargmin"])
+                                  "bench_k4_split", "bench_softargmin", "bench_t1_split", "bench_tools_f32"])
 def test_tools_refuse_to_run_without_cuda(tool, monkeypatch):
     """The tools measure the card: without CUDA they exit, and nothing
     falls back to the CPU."""

@@ -1,11 +1,12 @@
-"""The split-TF32 (3xTF32) arithmetic of the f32 routes of K5, K2 and K1
-(`ops/kernels/split_f32.py`), on the CPU.
+"""The split-TF32 (3xTF32) arithmetic of the f32 routes of K5, K2, K1, T1
+and T4 (`ops/kernels/split_f32.py`), on the CPU.
 
 The f32 routes run their contractions on the tensor cores with each f32
 operand split into two bit-masked TF32 halves. Emulated here in plain
 PyTorch, each contraction at its kernel's shapes must stay within the
 tolerance `chip_smoke.py` holds that kernel's f32 route to on the card
-(`REL_TOL["float32"]`, `BWD_TOL["float32"]`), against f64 products of the
+(`REL_TOL["float32"]`, `BWD_TOL["float32"]`; T1's and T4's 1e-4 of phase
+9, the same as `REL_TOL["float32"]`), against f64 products of the
 same seeded operands; one TF32 pass on the same operands must not (so the
 split, and not the data, keeps the route inside its tolerance)."""
 import math
@@ -50,6 +51,20 @@ def _k1(cp, rng):
     return rng.standard_normal((ROWS, 27 * cp)) * 0.6, rng.standard_normal((27 * cp, 64)) / math.sqrt(27 * cin)
 
 
+def _t1(size, rng):
+    """T1: the im2col rows [voxels, 27 Cin] of x ~ N(0, 1) against the
+    weight [27 Cin, Co] at `bench_dslice_fold.site_inputs`' 1/sqrt(27 Cin)
+    scale; size is (Cin, Co)."""
+    cin, co = size
+    return rng.standard_normal((ROWS, 27 * cin)), rng.standard_normal((27 * cin, co)) / math.sqrt(27 * cin)
+
+
+def _t4(k, rng):
+    """T4: a [m, k] x b [k, 64], both unscaled N(0, 1), as
+    `bench_vpu_prims` draws them."""
+    return rng.standard_normal((ROWS, k)), rng.standard_normal((k, 64))
+
+
 # (name, operands, K or CP, chip_smoke's tolerance for the result)
 CASES = [
     ("K5 Cin 35 -> Cp 36", _k5, 27 * 36, chip_smoke.REL_TOL["float32"]),
@@ -61,6 +76,10 @@ CASES = [
     ("K2 gw CP 64", _gw, 64, chip_smoke.BWD_TOL["float32"]["gw"]),
     ("K1 CP 40", _k1, 40, chip_smoke.REL_TOL["float32"]),
     ("K1 CP 64", _k1, 64, chip_smoke.REL_TOL["float32"]),
+    ("T1 K 27·32 -> 32", _t1, (32, 32), 1e-4),
+    ("T1 K 27·64 -> 32", _t1, (64, 32), 1e-4),
+    ("T1 K 27·64 -> 64", _t1, (64, 64), 1e-4),
+    ("T4 k 2240 -> 64", _t4, 2240, 1e-4),
 ]
 
 
