@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      entry function's registers, shared memory and spill bytes from the
      build log; a tensor-core kernel (the bf16 routes of K1, of K5 and T1,
      of K2 and of T4, the 3xTF32 f32 routes of K5 and T1, of K2, of K1 and
-     of T4) or an instantiation of K3 or K4 (each dtype, D = 1..16) that
-     spills, or one missing from the log, fails;
+     of T4, and K1's and K2's wide forms, the `<64, true>` instantiations of
+     both routes) or an instantiation of K3 or K4 (each dtype, D = 1..16,
+     and each dtype's wide form for D > 16) that spills, or one missing from
+     the log, fails;
   3. check each forward kernel (K1, K5) against its plain PyTorch
      version on the same seeded CUDA tensors at the serving path's shapes,
      in bf16 and f32; each check names its route (K1 and K5: bf16 `wgmma`
@@ -19,13 +21,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      apertures) and K5 in f32 at a data-parallel rank's batch 2 (phase 11);
      then K1 and K5 in f32 at the trainer path's batch 4 (phase 10),
      checked and timed beside their plain versions (K5 also beside
-     cuDNN's exact f32 conv3d): the f32 routes' yardstick;
+     cuDNN's exact f32 conv3d): the f32 routes' yardstick; then K1 at every
+     width of WIDTH_CINS x WIDTH_COS (Cin 3, 15, 51, 96, 131; Co 16, 24, 96,
+     128) on the ANM's D = 4 and 192x144 plane, batch 1, both routes and
+     apertures, and K5 at Cin 51 and 96;
   3b. the same for the backward kernels at the train path's shapes: K2 (all
      four gradients, both apertures, a quarter of the offsets whole numbers
      and some on the window bound; each check names its route, bf16
      `wgmma` for bf16 and 3xTF32 `wgmma` for f32), then K2's f32
      route at the trainer path's batch 4 (phase 10), against its plain
-     version on two batch-2 halves, and timed there;
+     version on two batch-2 halves, and timed there; K2 at every width of
+     WIDTH_CINS x WIDTH_COS, as K1 in phase 3;
   3c. K1 (Cin 35 and 64, both apertures), K5 (Cin 35 and 64), T1 (Co 32
      and 64, without and with the folded BatchNorm and ReLU) and K2 (Cin 35
      and 64, both apertures) at small ragged shapes (`EDGE_SHAPES`: M no
@@ -33,9 +39,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      naming its route;
   3d. K3 at the serving batch and K4 at the train batch, at the paths'
      coarse shape for D = 8, 5 and 16 and at (50, 36) for every D = 1..16
-     (each instantiation), then logits of scale 30 with a cell of planes
-     near -200 and one whose bins all underflow below the max over its
-     planes, f32 and bf16; K4 twice on the same inputs, bit for bit; then
+     (each instantiation), and for D = 17, 24 and 64 (the wide forms) at
+     both, then logits of scale 30 with a cell of planes near -200 and one
+     whose bins all underflow below the max over its planes (D = 8 and
+     24), f32 and bf16; K4 twice on the same inputs, bit for bit; then
      K4 in f32 at the trainer path's batch 4 (phase 10), D = 8, and K3 in
      f32 at a data-parallel rank's batch 2 (phase 11), D = 8;
   4. time each forward kernel, its plain version and, for K5, cuDNN's
@@ -48,6 +55,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   4c. K3 (serving shape) and K4 (train shape) in bf16, with CUDA events and
      on the device alone (`tools.device_ms`, the union of the device
      intervals: the host's dispatch left out), beside their plain versions;
+  4d. each widened route at phase 14's shapes (`time_wide_routes`), both
+     dtypes: K1 at the serving batch 4 and K2 at the train batch 2 (Cin 51
+     and 96, Co 96), each first checked against its plain version on the
+     same inputs within REL_TOL / BWD_TOL (K2's f32 plain version on the
+     two halves of the batch), K3 [4, 24, 192, 144], K4 [2, 24, 192, 144]
+     (checked at these shapes in 3d); ms, device ms, plain ms (the
+     `wide_run` lines);
   5. serve 3 request batches of 4 dual-pixel pairs at 768x576 in bf16
      through `Predictor` (seeded weights, non-zero offset heads): shapes,
      finiteness, launch counts (K1 +2, K5 +2, K3 +1 per forward), and a
@@ -151,7 +165,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      mask agreement), ms per image, peak memory; 13d `DeformConvPack2D`,
      plain and modulated, at [4, 192, 144, 64] with offsets ~N(0, 1),
      forward and gradients, the card against the CPU.
-The kernel checks (phases 3-4c and 9) run with TF32 off for cuDNN and CUDA
+  14. `stereodpnet_plus` at `inplanes` 48 and `level` 24 (WIDE_OVERRIDES;
+     K1 and K2 at Cin 51 and 96 with Co 96, K5 at Cin 51 and 96, K3 and K4
+     at 24 planes), seeded weights: 14a 3 request batches of 4 at 768x576
+     in bf16 (launches per forward K1 2, K3 1, K5 2); 14b 3 bf16 train steps
+     of batch 2, Adam (per step K1 2, K2 2, K3 3, K4 3, K5 2); 14c the card's
+     f32 forward against the CPU's at 192x192 (phase 6's tolerances); 14d
+     the general deform surface, the card against the CPU in f32, forward
+     and every gradient on [2, 8, 96, 72, 32]: `deform_conv3d` at stride 2
+     and dilation 2 and at kernel (1, 3, 3) with padding (0, 1, 1) (the
+     plain route), `DeformConv3D(dimension="HW")` (K1 and K2 at Co 32),
+     `DeformConvPack3D_d(dimension="T")` at stride 2.
+The kernel checks (phases 3-4d, 9 and 14d) run with TF32 off for cuDNN and CUDA
 matmuls, scoped: every other phase runs at the port's own setting, which
 an f32 Trainer or Predictor applies (`ops.precision.exact_f32`), and
 phase 10 fails unless its f32 Trainer turned both flags off from torch's
@@ -167,7 +192,10 @@ K1-K5 the train path's run of phase 7, `launches_serving` phase 5's,
 `launches_trainer` phase 10's, fit and test, `launches_ddp` phase 11's
 per rank on the one card, fit and test, every row; K1-K5 `launches_zoo`
 phase 12's per model (the five), 12a and 12b; `launches_last_modules`
-phase 13's (13a, 13c, 13d), all 0; K1, K2 and K5 also an `f32_route`
+phase 13's (13a, 13c, 13d), all 0; `launches_wide` phase 14a's and 14b's;
+K1-K4 a `wide_route` object: phase 4d's times per dtype beside their
+bounds (bf16 as the row's, f32 with the contractions as 3xTF32); K1, K2
+and K5 also an `f32_route`
 object: their f32 route at the trainer path's batch 4, ms, device ms,
 plain ms, library ms (K5: cuDNN's exact f32), the bound with every
 operation on the CUDA cores (`bound_ms`) and the split bound with the
@@ -187,6 +215,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -239,6 +268,17 @@ TRAINER_ANM_SHAPE = (TRAINER_BATCH, 4, H // 4, W // 4)
 # derivative summed over the channels, 3 FMA = 6: 53 in all.
 K1_F32_OPS = 15
 K2_F32_OPS = 53
+
+# The widths past the committed ones (every width the TPU kernels take):
+# K1 and K2 at each (Cin, Co) of WIDTH_CINS x WIDTH_COS on the ANM's D = 4
+# and the trainer's 192x144 plane, batch 1 (phases 3 and 3b); K5 at the
+# ANM's Cin at `inplanes` 48 (phase 3); K3 and K4 at more coarse planes
+# than the compiled-tap kernels' 16 (phase 3d). The same tolerances.
+WIDTH_CINS = (3, 15, 51, 96, 131)
+WIDTH_COS = (16, 24, 96, 128)
+WIDTH_SHAPE = (1, 4, H // 4, W // 4)
+K5_WIDE_CINS = (51, 96)
+WIDE_PLANES = (17, 24, 64)
 
 # phase 3c: [B, D, H, W] of K1's, K5's, T1's and K2's ragged checks: M = 10, 378, 4, 15
 # (no multiple of a 128-voxel tile), H = 2 and 1, W = 2 and 1, D = 1
@@ -329,8 +369,14 @@ def print_build_report(report: dict) -> None:
                     smem("deform_conv3d", "dpf_deform_conv3d_tc_smem_bytes", cp) for cp in (40, 64)})
     dynamic.update({("deform_conv3d", "deform_fwd_3xtf32_kernel", cp):
                     smem("deform_conv3d", "dpf_deform_conv3d_3xtf32_smem_bytes", cp) for cp in (40, 64)})
-    # K3's and K4's instantiations: each dtype and D = 1..16; none may spill
-    fsam = {(k, t, d) for k in ("fwd", "bwd") for t in ("f", "13__nv_bfloat16") for d in range(1, 17)}
+    # K1's and K2's wide forms (any Cin, any Co): the 64-channel instantiations'
+    # shared memory, <64, true>
+    for lib, kernel in (("deform_conv3d", "deform_fwd_tc_kernel"), ("deform_conv3d", "deform_fwd_3xtf32_kernel"),
+                        ("deform_conv3d_bwd", "deform_bwd_tc_kernel"), ("deform_conv3d_bwd", "deform_bwd_3xtf32_kernel")):
+        dynamic[(lib, kernel, 64, "wide")] = dynamic[(lib, kernel, 64)]
+    # K3's and K4's instantiations: each dtype and D = 1..16, and each
+    # dtype's wide form (D > 16); none may spill
+    fsam = {(k, t, d) for k in ("fwd", "bwd") for t in ("f", "13__nv_bfloat16") for d in (*range(1, 17), "wide")}
     seen = set()
     for name, r in report.items():
         for warning in re.findall(r".*Potential Performance Loss.*", r["log"]):
@@ -338,27 +384,29 @@ def print_build_report(report: dict) -> None:
         for f in ptxas_report(r["log"]):
             line = (f"ptxas {name}: {f['function']}: {f.get('registers')} registers, {f.get('static_smem')} bytes "
                     f"static smem, spill stores {f.get('spill_stores')} / loads {f.get('spill_loads')} bytes")
-            if m := re.search(r"fsam_(fwd|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)E", f["function"]):
-                key = (m.group(1), m.group(2), int(m.group(3)))
+            if m := re.search(r"fsam_(fwd|bwd)_(?:kernelI(f|13__nv_bfloat16)Li(\d+)E|wide_kernelI(f|13__nv_bfloat16)E)",
+                              f["function"]):
+                key = (m.group(1), m.group(2) or m.group(4), int(m.group(3)) if m.group(3) else "wide")
                 fsam.discard(key)
                 if key[0] == "bwd":
-                    line += f", dynamic smem {smem('fused_softargmin_bwd', 'dpf_fused_softargmin_bwd_smem_bytes', key[2])} bytes"
+                    line += f", dynamic smem {smem('fused_softargmin_bwd', 'dpf_fused_softargmin_bwd_smem_bytes', 16 if key[2] == 'wide' else key[2])} bytes"
                 if f.get("spill_stores") != 0 or f.get("spill_loads") != 0:
                     fail(f"the K3/K4 kernel {f['function']} spills: {f}")
-            if m := re.search(r"(conv3d_tc_kernel|conv3d_3xtf32_kernel|dot_bf16_kernel|dot_3xtf32_kernel|"
-                              r"deform_bwd_tc_kernel|deform_bwd_3xtf32_kernel|deform_fwd_tc_kernel|"
-                              r"deform_fwd_3xtf32_kernel)ILi(\d+)E",
+            if m := re.search(r"(conv3d_tc|conv3d_3xtf32|dot_bf16|dot_3xtf32|deform_bwd_tc|deform_bwd_3xtf32|"
+                              r"deform_fwd_tc|deform_fwd_3xtf32)(?:_kernelILi(\d+)E(Lb1E)?|_wide_kernel)",
                               f["function"]):
-                key = (name, m.group(1), int(m.group(2)))
+                # a wide form: the <64, true> instantiation, or K2 f32's own kernel
+                key = (name, m.group(1) + "_kernel", int(m.group(2) or 64)) + (
+                    ("wide",) if m.group(3) or not m.group(2) else ())
                 seen.add(key)
-                line += f", dynamic smem {dynamic[key]} bytes ({key[1]}<{key[2]}>)"
+                line += f", dynamic smem {dynamic[key]} bytes ({key[1]}<{key[2]}{', true' if len(key) > 3 else ''}>)"
                 if f.get("spill_stores") != 0 or f.get("spill_loads") != 0:
                     fail(f"the tensor-core kernel {f['function']} spills: {f}")
             print(line, flush=True)
     if seen != set(dynamic):
         fail(f"the build log reports tensor-core kernels {sorted(seen)}, not {sorted(dynamic)}")
     if fsam:
-        fail(f"the build log lacks K3/K4 instantiations {sorted(fsam)}")
+        fail(f"the build log lacks K3/K4 instantiations {sorted(fsam, key=str)}")
 
 
 def compare(name: str, got, ref, dtype_name: str, rel_tol: float | None = None) -> float:
@@ -404,6 +452,17 @@ def kernel_inputs(torch, gen, cin, dtype, shape=ANM_SHAPE, on_bound=False):
     w_off = (torch.randn((3, 3, 3, cin, 81), generator=gen, device=dev) / math.sqrt(27 * cin)).to(dtype)
     b_off = torch.randn((81,), generator=gen, device=dev).to(dtype)
     return x, off, w, bias, w_off, b_off
+
+
+def width_inputs(torch, gen, cin, co, dtype, shape=WIDTH_SHAPE):
+    """`kernel_inputs`' x and offsets (a quarter of them whole numbers, a
+    tenth of the H/W ones on the window bound), and a weight, bias and
+    cotangent of Co = co."""
+    x, off, _, _, _, _ = kernel_inputs(torch, gen, cin, dtype, shape, on_bound=True)
+    w = (torch.randn((3, 3, 3, cin, co), generator=gen, device="cuda") / math.sqrt(27 * cin)).to(dtype)
+    bias = torch.randn((co,), generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape + (co,), generator=gen, device="cuda").to(dtype)
+    return x, off, w, bias, g
 
 
 @contextlib.contextmanager
@@ -486,6 +545,23 @@ def check_and_time_kernels(torch):
             k5["library_ms"] = (k5["library_ms"] or 0.0) + run["cudnn_ms"]
             k5["flops"] += run["flops"]
             k5["bytes"] += sum(t.numel() * t.element_size() for t in (x, w_off, b_off)) + m * 81 * 2
+
+    # every width: K1 at WIDTH_CINS x WIDTH_COS (its wide form but at Cin
+    # <= 64 with Co 64), both routes and apertures; K5 at the ANM's Cin of
+    # `inplanes` 48 (its Co stays 81)
+    for dtype, dname in ((torch.float32, "float32"), (bf16, "bfloat16")):
+        for cin in WIDTH_CINS:
+            for co in WIDTH_COS:
+                x, off, w, bias, _ = width_inputs(torch, gen, cin, co, dtype)
+                for aperture in (True, False):
+                    compare(f"K1 deform_conv3d_fused [{fwd_route(dtype)}] {WIDTH_SHAPE} Cin={cin} Co={co} "
+                            f"aperture={aperture}", deform_conv3d_fused(x, off, w, bias, aperture=aperture),
+                            deform_conv3d_plain(x, off, w, bias, aperture=aperture), dname)
+        for cin in K5_WIDE_CINS:
+            x, _, _, _, w_off, b_off = kernel_inputs(torch, gen, cin, dtype)
+            compare(f"K5 conv3d_dslice [{route(dtype)}] Cin={cin}", conv3d_dslice(x, w_off, b_off),
+                    conv3d_dslice_plain(x, w_off, b_off), dname)
+        torch.cuda.empty_cache()
 
     # the f32 routes at the batch a data-parallel rank gives them (phase 11)
     f32 = torch.float32
@@ -586,40 +662,56 @@ def check_and_time_backward_kernels(torch, err, timing):
             # x, offset, weight and g read; gx, goff and gw written
             k2["bytes"] += sum(t.numel() * t.element_size() for t in (x, off, w)) * 2 + g.numel() * g.element_size()
 
+    # every width: K2 at WIDTH_CINS x WIDTH_COS, both routes and apertures
+    for dtype, dname in ((torch.float32, "float32"), (bf16, "bfloat16")):
+        for cin in WIDTH_CINS:
+            for co in WIDTH_COS:
+                x, off, w, bias, g = width_inputs(torch, gen, cin, co, dtype)
+                for aperture in (True, False):
+                    got = deform_conv3d_bwd(x, off, w, bias, g, aperture=aperture)
+                    ref = deform_conv3d_bwd_plain(x, off, w, bias, g, aperture=aperture)
+                    for gname, a, r in zip(("gx", "goff", "gw", "gb"), got, ref):
+                        compare(f"K2 deform_conv3d_bwd [{bwd_route(dtype)}] {gname} {WIDTH_SHAPE} Cin={cin} Co={co} "
+                                f"aperture={aperture}", a, r, dname, BWD_TOL[dname][gname])
+                    del got, ref
+                torch.cuda.empty_cache()
+
     timing["K2"]["f32_route"] = k2 = f32_work()
     m = math.prod(TRAINER_ANM_SHAPE)
-    halves_of = (slice(0, TRAINER_BATCH // 2), slice(TRAINER_BATCH // 2, None))
     for cin in CINS:
         x, off, w, bias, _, _ = kernel_inputs(torch, gen, cin, torch.float32, TRAINER_ANM_SHAPE, on_bound=True)
         g = torch.randn(TRAINER_ANM_SHAPE + (COUT,), generator=gen, device="cuda")
         for aperture in (True, False):
             got = deform_conv3d_bwd(x, off, w, bias, g, aperture=aperture)
-            halves = []
-            for rows in halves_of:
-                halves.append(deform_conv3d_bwd_plain(x[rows], off[rows], w, bias, g[rows], aperture=aperture))
-                torch.cuda.empty_cache()
-            (gx0, goff0, gw0, gb0), (gx1, goff1, gw1, gb1) = halves
-            ref = (torch.cat([gx0, gx1]), torch.cat([goff0, goff1]), gw0 + gw1, gb0 + gb1)
+            ref = bwd_plain_in_halves(torch, x, off, w, bias, g, aperture)
             for gname, a, r in zip(("gx", "goff", "gw", "gb"), got, ref):
                 compare(f"K2 deform_conv3d_bwd [{bwd_route(torch.float32)}] {gname} B={TRAINER_BATCH} Cin={cin} "
                         f"aperture={aperture} (the trainer's)", a, r, "float32", BWD_TOL["float32"][gname])
-            del got, ref, halves
+            del got, ref
             torch.cuda.empty_cache()
         # the f32 route's time at the trainer's aperture (the windowed
         # deform of D = 4 planes); the plain version on the two halves
         k2["ms"] += cuda_ms(lambda: deform_conv3d_bwd(x, off, w, bias, g, aperture=True), 3)
         k2["device_ms"] += device_ms(lambda: deform_conv3d_bwd(x, off, w, bias, g, aperture=True), 3)
-
-        def plain_halves():
-            for rows in halves_of:
-                deform_conv3d_bwd_plain(x[rows], off[rows], w, bias, g[rows], aperture=True)
-                torch.cuda.empty_cache()
-
-        k2["plain_ms"] += cuda_ms(plain_halves, 1)
+        k2["plain_ms"] += cuda_ms(lambda: bwd_plain_in_halves(torch, x, off, w, bias, g, True), 1)
         k2["flops_mma"] += 2 * 2.0 * COUT * m * 27 * cin
         k2["ops_f32"] += K2_F32_OPS * m * 27 * cin
         k2["bytes"] += sum(t.numel() * t.element_size() for t in (x, off, w)) * 2 + g.numel() * g.element_size()
         torch.cuda.empty_cache()
+
+
+def bwd_plain_in_halves(torch, x, off, w, bias, g, aperture):
+    """K2's plain version in f32 on each half of the batch, its gradients
+    joined (gx and goff) or summed (gw and gb): at the full batch its
+    autograd state would not fit on the card."""
+    from dualpixelface_tpu_torch.ops.kernels.deform_fused import deform_conv3d_bwd_plain
+
+    halves = []
+    for rows in (slice(0, x.shape[0] // 2), slice(x.shape[0] // 2, None)):
+        halves.append(deform_conv3d_bwd_plain(x[rows], off[rows], w, bias, g[rows], aperture=aperture))
+        torch.cuda.empty_cache()
+    (gx0, goff0, gw0, gb0), (gx1, goff1, gw1, gb1) = halves
+    return torch.cat([gx0, gx1]), torch.cat([goff0, goff1]), gw0 + gw1, gb0 + gb1
 
 
 # K3 and K4 (phase 3d): the coarse plane counts held at the paths' shape
@@ -663,9 +755,9 @@ def check_and_time_softargmin(torch, err, timing):
     from dualpixelface_tpu_torch.tools import bench_softargmin, cuda_ms, device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = [(d, (H // 4, W // 4), False) for d in SOFTARGMIN_PLANES]
-    cases += [(d, (50, 36), False) for d in range(1, 17)]
-    cases.append((8, (50, 36), True))
+    cases = [(d, (H // 4, W // 4), False) for d in SOFTARGMIN_PLANES + WIDE_PLANES]
+    cases += [(d, (50, 36), False) for d in (*range(1, 17), *WIDE_PLANES)]
+    cases += [(8, (50, 36), True), (24, (50, 36), True)]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         for d, hw, wide in cases:
@@ -934,20 +1026,26 @@ def check_against_cpu(torch, config, sd):
         fail(f"the card's {config.model_name} forward disagrees with the CPU forward at 192x192")
 
 
-def train_full_width(torch, sd, card, cell="stereodpnet_plus"):
-    """Phases 7 and 7b: 3 train steps in train cell `cell` of
+def train_full_width(torch, sd, card, cell="stereodpnet_plus", overrides=None):
+    """Phases 7, 7b and 14b: 3 train steps in train cell `cell` of
     `profile_train.CELLS` (batch 2 at 768x576 under the bf16 policy:
-    `profile_train.TRAIN_CELL`'s run keys), with the launch counts set to 0
-    just before and read just after."""
+    `profile_train.TRAIN_CELL`'s run keys), its model keys overridden by
+    `overrides` where given, with the launch counts set to 0 just before
+    and read just after."""
     from dualpixelface_tpu_torch.losses import loss_selector
     from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from dualpixelface_tpu_torch.ops.precision import resolve_policy
     from dualpixelface_tpu_torch.profile_serving import timed
-    from dualpixelface_tpu_torch.profile_train import cell_config, train_batch
+    from dualpixelface_tpu_torch.config import load_config
+    from dualpixelface_tpu_torch.profile_train import CELLS, TRAIN_CELL, cell_config, train_batch
     from dualpixelface_tpu_torch.train.state import create_train_state
     from dualpixelface_tpu_torch.train.steps import make_train_step
 
-    config = cell_config(cell)
+    if overrides:
+        model, over = CELLS[cell]
+        config = load_config(model, model_overrides={**over, **overrides}, run_overrides=TRAIN_CELL)
+    else:
+        config = cell_config(cell)
     if (resolve_policy(config), config.batch_size) != (torch.bfloat16, TB):
         fail(f"the train cell's run keys give {resolve_policy(config)}, batch {config.batch_size}")
     state = create_train_state(config, steps_per_epoch=100, state_dict=sd, device="cuda")
@@ -981,7 +1079,8 @@ def train_full_width(torch, sd, card, cell="stereodpnet_plus"):
     if moved != len(before):
         fail(f"only {moved} of {len(before)} parameter tensors moved in 3 train steps")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(json.dumps({"train_smoke": {**smoke, "cell": cell, "model": config.model_name, "batch": TB, "hw": [H, W],
+    print(json.dumps({"train_smoke": {**smoke, "cell": cell, "overrides": overrides or {}, "model": config.model_name,
+                                      "batch": TB, "hw": [H, W],
                                       "dtype": "bfloat16",
                                       "peak_memory_gb": peak, "params_moved": moved, "params": len(before),
                                       "card": card}}), flush=True)
@@ -2298,6 +2397,174 @@ def last_modules_phase(torch, card: str, phase) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 14: `stereodpnet_plus` at widths past the committed ones, at the
+# reference's 768x576: its ANM deform convs 51 -> 96 and 96 -> 96 (K1, K2
+# and K5 at those Cin), its regression 96 bins (K3 and K4 at 24 planes)
+WIDE_OVERRIDES = {"inplanes": 48, "level": 24}
+# 14d: the general deform surface on [2, 8, 96, 72, 32] (B, D, H, W, C)
+GENERAL_SHAPE = (2, 8, 96, 72, 32)
+
+
+def general_modules_against_cpu(torch, card):
+    """Phase 14d: the deform surface outside the ANM, the card against the
+    CPU in f32, forward and every gradient (a seeded cotangent), on
+    GENERAL_SHAPE: `deform_conv3d` at stride 2 with dilation 2 and at
+    kernel (1, 3, 3) with padding (0, 1, 1) (the plain route: gather and
+    matmul), `DeformConv3D(dimension="HW")` at 3x3x3 / s1 / p1 (K1 and K2,
+    Co 32) and `DeformConvPack3D_d(dimension="T")` at stride 2 (its offset
+    head cuDNN's conv3d, seeded non-zero). External offsets ~N(0, 1.5) sit
+    at the same positions on both devices: every quantity within DCN_TOL
+    of its largest entry. Pack_d's offsets come from each device's conv,
+    ~1e-6 apart, so a few samples lie across a voxel boundary from each
+    other: the gradients that pass through the offsets (x's and the head's)
+    are held in norm, within DCN_JUMP_TOL, as phase 13d holds them."""
+    from dualpixelface_tpu_torch.ops import deform_conv3d as dc
+
+    gen = torch.Generator().manual_seed(14)
+    b, d, h, w, c = GENERAL_SHAPE
+    x = torch.randn(GENERAL_SHAPE, generator=gen)
+
+    def fn_case(ks, stride, padding, dilation):
+        weight = torch.randn(ks + (c, c), generator=gen) / math.sqrt(math.prod(ks) * c)
+        bias = torch.randn(c, generator=gen)
+        out = tuple((n + 2 * p - q * (k - 1) - 1) // s + 1
+                    for n, p, q, k, s in zip((d, h, w), padding, dilation, ks, stride))
+        off = torch.randn((b,) + out + (3 * math.prod(ks),), generator=gen) * 1.5
+        call = lambda xx, oo, ww, bb: dc.deform_conv3d(xx, oo, ww, bb, stride, padding, dilation)  # noqa: E731
+        return call, [x, off, weight, bias]
+
+    cases = {"deform_conv3d s2 d2": fn_case((3, 3, 3), (2, 2, 2), (2, 2, 2), (2, 2, 2)),
+             "deform_conv3d k133 p011": fn_case((1, 3, 3), (1, 1, 1), (0, 1, 1), (1, 1, 1))}
+    hw_mod = dc.DeformConv3D(c, c, dimension="HW")
+    cases["DeformConv3D HW"] = (hw_mod, [x, torch.randn((b, d, h, w, 2 * 27), generator=gen) * 1.5])
+    pack_d = dc.DeformConvPack3D_d(c, c, stride=2, dimension="T")
+    with torch.no_grad():
+        wo = pack_d.conv_offset.weight
+        wo.copy_(torch.randn(wo.shape, generator=gen) * 3.0 / math.sqrt(wo[0].numel()))
+    cases["DeformConvPack3D_d T"] = (pack_d, [x])
+    for name, (call, args) in cases.items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            leaves = [a.clone().to(device).requires_grad_(True) for a in args]
+            fn = copy.deepcopy(call).to(device) if isinstance(call, torch.nn.Module) else call
+            out = fn(*leaves)
+            params = list(fn.named_parameters()) if isinstance(fn, torch.nn.Module) else []
+            cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(device)
+            out.backward(cot)
+            res[device] = {"out": out.detach().cpu(), **{f"arg{i}": t.grad.cpu() for i, t in enumerate(leaves)},
+                           **{n: p.grad.cpu() for n, p in params}}
+        torch.cuda.synchronize()
+        errs = {k: float((res["cuda"][k] - v).abs().max() / v.abs().max()) for k, v in res["cpu"].items()}
+        norm_errs = {k: float((res["cuda"][k] - v).norm() / v.norm()) for k, v in res["cpu"].items()}
+        jumps = ("arg0", "conv_offset.weight", "conv_offset.bias") if name.startswith("DeformConvPack3D_d") else ()
+        print(json.dumps({"general_deform_smoke": {"case": name, "shape": list(GENERAL_SHAPE),
+                                                   "out_shape": list(res["cpu"]["out"].shape), "rel_err": errs,
+                                                   "norm_rel_err": norm_errs, "held_in_norm": list(jumps),
+                                                   "tolerances": [DCN_TOL, DCN_JUMP_TOL], "card": card}}), flush=True)
+        if any(errs[k] > DCN_TOL for k in errs if k not in jumps) or any(norm_errs[k] > DCN_JUMP_TOL for k in jumps):
+            fail(f"phase 14d: the card's {name} disagrees with the CPU's: {errs} {norm_errs}")
+
+
+def time_wide_routes(torch, card):
+    """Phase 4d: each widened route at phase 14's shapes, both dtypes: K1 at
+    the serving batch 4 (Cin 51 and 96, Co 96, windowed; a row sums both)
+    and K2 at the train batch 2 (the same), each first held against its
+    plain version on the same inputs (`REL_TOL`; K2's four gradients at
+    `BWD_TOL`, its f32 plain version on the two halves of the batch,
+    `bwd_plain_in_halves`), K3 at [4, 24, 192, 144] and K4 at [2, 24, 192,
+    144] (phase 3d checks both at these shapes); then ms (CUDA events),
+    device ms (`tools.device_ms`), plain ms and the work the bounds price
+    (`K1_F32_OPS`, `K2_F32_OPS`, `tools.bench_softargmin.work`). A K1/K2
+    row's `max_abs_err` is the largest of its checks'."""
+    from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities
+    from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
+        bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain, deform_conv3d_fused, deform_conv3d_plain, fwd_route)
+    from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import (
+        fused_softargmin, fused_softargmin_bwd, fused_softargmin_bwd_plain, fused_softargmin_plain)
+    from dualpixelface_tpu_torch.tools import bench_softargmin, cuda_ms, device_ms
+
+    c = WIDE_OVERRIDES["inplanes"]
+    cins, co, planes = (c + 3, 2 * c), 2 * c, WIDE_OVERRIDES["level"]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = {}
+    for dtype, dname in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        item = torch.finfo(dtype).bits // 8
+        for k, batch in (("K1", B), ("K2", TB)):
+            row = rows.setdefault(f"{k} {dname}", {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+                                                   "flops_mma": 0.0, "ops_f32": 0.0, "bytes": 0.0, "batch": batch,
+                                                   "cins": cins, "co": co})
+            shape = (batch, 4, H // 4, W // 4)
+            m = math.prod(shape)
+            for cin in cins:
+                x, off, w, bias, g = width_inputs(torch, gen, cin, co, dtype, shape)
+                label = f"{shape} Cin={cin} Co={co} aperture=True (phase 14's)"
+                if k == "K1":
+                    fn = lambda: deform_conv3d_fused(x, off, w, bias, aperture=True)  # noqa: E731
+                    plain = lambda: deform_conv3d_plain(x, off, w, bias, aperture=True)  # noqa: E731
+                    errs = [compare(f"K1 deform_conv3d_fused [{fwd_route(dtype)}] {label}", fn(), plain(), dname)]
+                    row["flops_mma"] += 2.0 * m * 27 * cin * co
+                    row["ops_f32"] += K1_F32_OPS * m * 27 * cin
+                    row["bytes"] += sum(t.numel() for t in (x, off, w, bias)) * item + m * co * item
+                else:
+                    fn = lambda: deform_conv3d_bwd(x, off, w, bias, g, aperture=True)  # noqa: E731
+                    if dtype == torch.float32:
+                        plain = lambda: bwd_plain_in_halves(torch, x, off, w, bias, g, True)  # noqa: E731
+                    else:
+                        plain = lambda: deform_conv3d_bwd_plain(x, off, w, bias, g, aperture=True)  # noqa: E731
+                    errs = [compare(f"K2 deform_conv3d_bwd [{bwd_route(dtype)}] {gname} {label}", a, r, dname,
+                                    BWD_TOL[dname][gname])
+                            for gname, a, r in zip(("gx", "goff", "gw", "gb"), fn(), plain())]
+                    row["flops_mma"] += 2 * 2.0 * m * 27 * cin * co
+                    row["ops_f32"] += K2_F32_OPS * m * 27 * cin
+                    row["bytes"] += (sum(t.numel() for t in (x, off, w)) * 2 + g.numel()) * item
+                row["max_abs_err"] = max(row["max_abs_err"], *errs)
+                torch.cuda.empty_cache()
+                row["ms"] += cuda_ms(fn, 3)
+                row["device_ms"] += device_ms(fn, 3)
+                row["plain_ms"] += cuda_ms(plain, 1)
+                del x, off, w, bias, g
+                torch.cuda.empty_cache()
+        disp = regression_disparities(-4, 12, planes, 4)
+        for k, batch in (("K3", B), ("K4", TB)):
+            cost = softargmin_cost(torch, gen, batch, planes, (H // 4, W // 4), dtype)
+            if k == "K3":
+                fn = lambda: fused_softargmin(cost, disp, 4)  # noqa: E731
+                plain = lambda: fused_softargmin_plain(cost, disp, 4)  # noqa: E731
+            else:
+                g = torch.randn((batch, H, W), generator=gen, device="cuda").to(dtype)
+                fn = lambda: fused_softargmin_bwd(cost, g, disp, 4)  # noqa: E731
+                plain = lambda: fused_softargmin_bwd_plain(cost, g, disp, 4)  # noqa: E731
+            rows[f"{k} {dname}"] = {"ms": cuda_ms(fn, 20), "device_ms": device_ms(fn, 20), "plain_ms": cuda_ms(plain, 2),
+                                    "batch": batch, "planes": planes,
+                                    **bench_softargmin.work(k, tuple(cost.shape), item)}
+            torch.cuda.empty_cache()
+    for key, row in rows.items():
+        print(json.dumps({"wide_run": {"route": key, **row, "card": card}}), flush=True)
+    return rows
+
+
+def wide_phase(torch, card, phase) -> dict:
+    """Phase 14: `stereodpnet_plus` at WIDE_OVERRIDES (seeded weights with
+    non-zero offset heads): 14a serving (3 batches of 4 at 768x576, bf16;
+    launches per forward K1 2, K3 1, K5 2), 14b 3 bf16 train steps (batch 2,
+    Adam; per step K1 2, K2 2, K3 3, K4 3, K5 2), 14c the card's f32
+    forward against the CPU's at 192x192 (phase 6's tolerances), each with
+    the launch counts set to 0 just before and read just after; 14d the
+    general deform modules (`general_modules_against_cpu`). Returns 14a's
+    and 14b's launch counts."""
+    from dualpixelface_tpu_torch.config import load_config
+    from dualpixelface_tpu_torch.serve import seeded_state_dict
+
+    config = load_config("stereodpnet_plus", model_overrides=WIDE_OVERRIDES)
+    sd = seeded_state_dict(config)
+    serving = phase("14a", serve_full_width, torch, config, sd, card, {"K1": 2, "K3": 1, "K5": 2}, "serving_wide")
+    train = phase("14b", train_full_width, torch, sd, card, "stereodpnet_plus", WIDE_OVERRIDES)
+    phase("14c", check_against_cpu, torch, config, sd)
+    with kernel_checks_in_f32(torch):
+        phase("14d", general_modules_against_cpu, torch, card)
+    return {"serving": serving, "train": train}
+
+
 def main() -> int:
     import torch
 
@@ -2311,7 +2578,7 @@ def main() -> int:
     from dualpixelface_tpu_torch.config import load_config
     from dualpixelface_tpu_torch.ops.kernels import _build
     from dualpixelface_tpu_torch.serve import seeded_state_dict
-    from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, PEAK_SFU, PEAK_TF32, bound_ms
+    from dualpixelface_tpu_torch.tools import PEAK_BF16, PEAK_F32, PEAK_SFU, PEAK_TF32, bench_softargmin, bound_ms
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -2337,6 +2604,7 @@ def main() -> int:
         phase("3b, 4b", check_and_time_backward_kernels, torch, err, timing)
         phase("3d, 4c", check_and_time_softargmin, torch, err, timing)
         phase("3c", check_edge_shapes, torch)
+        wide_rows = phase("4d", time_wide_routes, torch, card)
     print(f"TF32 flags (cudnn, matmul) after the kernel checks: {tf32_flags(torch)}", flush=True)
     config = load_config("stereodpnet_plus")
     exact = load_config("stereodpnet")
@@ -2357,6 +2625,7 @@ def main() -> int:
     launches_ddp = next(iter(ddp.values()))
     launches_zoo = zoo_phase(torch, card, phase)
     launches_last = last_modules_phase(torch, card, phase)
+    launches_wide = wide_phase(torch, card, phase)
     print(json.dumps({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0}), flush=True)
     k5, t1 = timing["K5"], tools["T1"]
     chain_ms = sum(r["chain_ms"] for r in t1["runs"])
@@ -2385,7 +2654,21 @@ def main() -> int:
             "max_abs_err": err[k], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],
+            "launches_wide": {p: c[k] for p, c in launches_wide.items()},
         })
+        if k != "K5":
+            # phase 4d's widened routes: bf16 priced as above, f32 with the
+            # contractions three times over as TF32 (`split_bound_ms`)
+            kernels[-1]["wide_route"] = wide = {"overrides": WIDE_OVERRIDES}
+            for dname in ("bfloat16", "float32"):
+                r = wide_rows[f"{k} {dname}"]
+                if k in ("K1", "K2"):
+                    peak = (PEAK_BF16, 1) if dname == "bfloat16" else (PEAK_TF32, 3)
+                    w_ms, w_by = bound_ms(r["bytes"], (peak[1] * r["flops_mma"], peak[0]), (r["ops_f32"], PEAK_F32))
+                else:
+                    w_ms, w_by = bench_softargmin.bound(r)
+                wide[dname] = {**r, "bound_ms": w_ms, "bound_by": w_by,
+                               "launches": {p: c[k] for p, c in launches_wide.items()}}
         if "f32_route" in t:
             # the f32 route at the trainer path's batch 4: bound_ms with
             # every operation on the CUDA cores, split_bound_ms with the

@@ -139,6 +139,18 @@
 // one block an SM at up to 128 registers a thread. The gather's 16-byte
 // loads move about 40 GB through L1 at the trainer's shape (twice the bf16
 // route's bytes), about 1.2 ms at L1's 128 bytes a clock an SM.
+//
+// Other widths (the TPU kernel takes any Cin and Co): both routes' wide
+// forms, the CP = 64 kernels instantiated with WIDE (`dpf_deform_conv3d_wide`).
+// x comes padded to 64 nch channels and the block walks 27 nch steps (tap,
+// 64-channel chunk) through the same ring and A rows, forming a tap's
+// corners at its first chunk: Cin past 64 is more K steps into the same f32
+// accumulator, so the output is rounded once. Co is padded with zero weight
+// columns to whole N tiles of 64, each a block of its own on the grid's y
+// (each gathers its voxels again: the simplest right design; keeping the
+// gathered A tile for every N tile would need the A tiles of all chunks in
+// shared memory or more accumulator registers than a block of 2 warpgroups
+// has). The committed widths (Cin 35 and 64, Co 64) keep the tuned forms.
 #include "conv_tc.cuh"
 #include "tma.cuh"
 
@@ -148,7 +160,7 @@ using namespace dpf;
 
 constexpr float EPS = 1.0f / 1024.0f;
 constexpr float AP = 3.0f;
-constexpr int CO = 64;  // the ANM deform convs' output channels, the only caller
+constexpr int CO = 64;  // the tuned forms' output channels (the committed ANM's), the wide forms' N tile
 
 // ------------------------------------------------------- bf16: tensor cores
 constexpr int TBM = 128;             // voxels per block: two m64 row tiles
@@ -231,12 +243,27 @@ __device__ __forceinline__ void tap_corners(int4* wc, int cv, int cz, int4 v, in
 
 // CP: x's padded channels (40 or 64). xp [M, CP], offset [M, 81], wmap over
 // wpk [27 KP, 64] (zero rows past C), bias [64] or null, out [M, 64]; bf16.
-template <int CP>
+// WIDE (CP = 64 only): x comes as nch chunks of 64 channels (xp [M, 64 nch])
+// and the block walks 27 nch steps (tap, chunk), the chunk's samples the A
+// tile and the weight rows [27 nch 64, cop] the ring's, the corners formed at
+// a tap's first chunk: more K steps into the same accumulator, so the output
+// is still rounded once. Co is cop / 64 N tiles on the grid's y (each block
+// gathers its voxels again: right, not fast), bias [cop] or null, out
+// [M, cop]; the wrapper pads the weight's and the bias's columns with zeros
+// up to cop and slices the output.
+template <int CP, bool WIDE>
 __global__ void __launch_bounds__(NT, 2)
 deform_fwd_tc_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ offset, const __nv_bfloat16* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, int M, int D, int H, int W, int aperture) {
+                     __nv_bfloat16* __restrict__ out, int M, int D, int H, int W, int aperture, int nch_arg,
+                     int cop_arg) {
+  static_assert(!WIDE || CP == 64, "the wide form takes x in 64-channel chunks");
   constexpr int KP = k_rows(CP);
+  const int nch = WIDE ? nch_arg : 1;              // x's chunks of CP channels
+  const int cop = WIDE ? cop_arg : CO;             // the output's padded channels
+  const int n0 = WIDE ? CO * (int)blockIdx.y : 0;  // the block's N tile
+  const int ldx = nch * CP;                        // x's row
+  const int steps = 27 * nch;
   using S = FwdSmem<KP>;
   constexpr int GS = CP / CPL;  // lanes per voxel
   constexpr int GPW = 32 / GS;  // voxels a warp gathers at once
@@ -291,7 +318,7 @@ deform_fwd_tc_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       tma::mbar_expect_tx(&full[t], S::w_slot);
-      tma::load_2d(sm + S::w + t * S::w_slot, &wmap, &full[t], 0, t * KP);
+      tma::load_2d(sm + S::w + t * S::w_slot, &wmap, &full[t], n0, t * KP);
     }
   }
 
@@ -305,13 +332,17 @@ deform_fwd_tc_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat
   const int cv = lane >> 1, cz = lane & 1;
   const int4 cvx = vox[r0 + cv];
 
-  for (int tap = 0; tap < 27; ++tap) {
-    uint8_t* at = sm + S::a + (tap & 1) * A_TILE;
-    const __nv_bfloat16* op = offs + (r0 + cv) * 81 + tap * 3;
-    tap_corners(wcorner, cv, cz, cvx, tap, __bfloat162float(op[0]), __bfloat162float(op[1]),
-                __bfloat162float(op[2]), D, H, W, aperture);
+  for (int step = 0; step < steps; ++step) {
+    const int tap = WIDE ? step / nch : step;
+    const int cb = WIDE ? (step - tap * nch) * CP : 0;  // the step's first channel
+    uint8_t* at = sm + S::a + (step & 1) * A_TILE;
+    if (cb == 0) {
+      const __nv_bfloat16* op = offs + (r0 + cv) * 81 + tap * 3;
+      tap_corners(wcorner, cv, cz, cvx, tap, __bfloat162float(op[0]), __bfloat162float(op[1]),
+                  __bfloat162float(op[2]), D, H, W, aperture);
+    }
     // the gather: this warp's 16 rows of the A tile, which only its
-    // warpgroup's wgmma of tap - 2 read (done: wgmma_wait<1> at tap - 1)
+    // warpgroup's wgmma of step - 2 read (done: wgmma_wait<1> at step - 1)
 #pragma unroll
     for (int v0 = 0; v0 < WV; v0 += GPW) {
       const int v = v0 + grp;
@@ -322,7 +353,7 @@ deform_fwd_tc_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat
       const int wbits[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
       uint4 xr[8];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) xr[q] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)id[q] * CP + c));
+      for (int q = 0; q < 8; ++q) xr[q] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)id[q] * ldx + cb + c));
       // the sample in f32 in corner order, rounded to bf16: one 16-byte store
       float s[CPL];
 #pragma unroll
@@ -336,15 +367,15 @@ deform_fwd_tc_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat
       *reinterpret_cast<uint4*>(at + tc::swizzle(r0 + v, c >> 3)) = packed;
     }
     tc::fence_proxy_async();  // the A tile, written by the generic proxy, is read by wgmma
-    __syncthreads();          // the A hand-off; every wgmma of tap - 2 is done
-    if (tid == 0 && tap >= 1 && tap + 1 < 27) {  // the next tap's rows, into the slot tap - 2 used
-      const int s = (tap + 1) % STAGES;
+    __syncthreads();          // the A hand-off; every wgmma of step - 2 is done
+    if (tid == 0 && step >= 1 && step + 1 < steps) {  // the next step's rows, into the slot step - 2 used
+      const int s = (step + 1) % STAGES;
       tma::mbar_expect_tx(&full[s], S::w_slot);
-      tma::load_2d(sm + S::w + s * S::w_slot, &wmap, &full[s], 0, (tap + 1) * KP);
+      tma::load_2d(sm + S::w + s * S::w_slot, &wmap, &full[s], n0, (step + 1) * KP);
     }
-    const int s = tap % STAGES;
-    tma::mbar_wait(&full[s], (tap / STAGES) & 1);
-    const uint32_t sa = base + S::a + (tap & 1) * A_TILE + wg * 64 * 128;
+    const int s = step % STAGES;
+    tma::mbar_wait(&full[s], (step / STAGES) & 1);
+    const uint32_t sa = base + S::a + (step & 1) * A_TILE + wg * 64 * 128;
     const uint32_t sb = base + S::w + s * S::w_slot;
     tc::wgmma_fence();
 #pragma unroll
@@ -364,34 +395,42 @@ deform_fwd_tc_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat
     float v0 = __bfloat162float(__float2bfloat16_rn(acc[e]));
     float v1 = __bfloat162float(__float2bfloat16_rn(acc[e + 1]));
     if (bias != nullptr) {
-      v0 += __bfloat162float(bias[n]);
-      v1 += __bfloat162float(bias[n + 1]);
+      v0 += __bfloat162float(bias[n0 + n]);
+      v1 += __bfloat162float(bias[n0 + n + 1]);
     }
     *reinterpret_cast<__nv_bfloat162*>(st + tc::swizzle(r, n >> 3) + (n & 7) * 2) = __floats2bfloat162_rn(v0, v1);
   }
   __syncthreads();
-  // the block's rows: one contiguous span from byte 128 m0, in 16-byte stores
-  uint4* dst = reinterpret_cast<uint4*>(out + (size_t)m0 * CO);
-  for (int g = tid; g < rows * 8; g += NT) dst[g] = *reinterpret_cast<const uint4*>(st + tc::swizzle(g >> 3, g & 7));
+  if constexpr (WIDE) {
+    // the block's rows, 128 bytes each at column n0 of the out rows
+    for (int g = tid; g < rows * 8; g += NT)
+      *reinterpret_cast<uint4*>(out + (size_t)(m0 + (g >> 3)) * cop + n0 + 8 * (g & 7)) =
+          *reinterpret_cast<const uint4*>(st + tc::swizzle(g >> 3, g & 7));
+  } else {
+    // the block's rows: one contiguous span from byte 128 m0, in 16-byte stores
+    uint4* dst = reinterpret_cast<uint4*>(out + (size_t)m0 * CO);
+    for (int g = tid; g < rows * 8; g += NT) dst[g] = *reinterpret_cast<const uint4*>(st + tc::swizzle(g >> 3, g & 7));
+  }
 }
 
-template <int CP>
+// nch chunks of CP channels (1 unless WIDE), cop output channels (CO unless WIDE).
+template <int CP, bool WIDE>
 int launch_tc(cudaStream_t s, const void* xp, const void* offset, const void* wpk, const void* bias, void* out,
-              int M, int D, int H, int W, int aperture) {
+              int M, int D, int H, int W, int aperture, int nch, int cop) {
   constexpr int KP = k_rows(CP);
   CUtensorMap wm;
-  const uint64_t dims[2] = {(uint64_t)CO, (uint64_t)27 * KP};
-  const uint64_t stride[1] = {(uint64_t)CO * 2};
+  const uint64_t dims[2] = {(uint64_t)cop, (uint64_t)27 * nch * KP};
+  const uint64_t stride[1] = {(uint64_t)cop * 2};
   const uint32_t box[2] = {CO, KP};
   const int rc = tma::encode(&wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, wpk, dims, stride, box);
   if (rc != 0) return rc;
-  auto kernel = deform_fwd_tc_kernel<CP>;
+  auto kernel = deform_fwd_tc_kernel<CP, WIDE>;
   static const cudaError_t opted_in =  // once per instantiation and process (one card)
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FwdSmem<KP>::bytes);
   if (opted_in != cudaSuccess) return (int)opted_in;
-  kernel<<<(unsigned)((M + TBM - 1) / TBM), NT, FwdSmem<KP>::bytes, s>>>(
+  kernel<<<dim3((unsigned)((M + TBM - 1) / TBM), (unsigned)(cop / CO)), NT, FwdSmem<KP>::bytes, s>>>(
       wm, static_cast<const __nv_bfloat16*>(xp), static_cast<const __nv_bfloat16*>(offset),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), M, D, H, W, aperture);
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), M, D, H, W, aperture, nch, cop);
   return (int)cudaGetLastError();
 }
 
@@ -424,15 +463,16 @@ __device__ __forceinline__ void sample_fragment(const float* rows, int rs, int k
     tc::split_tf32(rows[((lane >> 2) + 8 * (q & 1)) * rs + k0 + (lane & 3) + 4 * (q >> 1)], hi[q], lo[q]);
 }
 
-// Tap t's hi and lo weight planes (maps hi, lo), two K panels each, into
-// the ring slot at dst, reported to bar.
+// A step's hi and lo weight planes (maps hi, lo; the step's K columns from
+// k0, its 64 N rows from row), two K panels each, into the ring slot at
+// dst, reported to bar.
 __device__ __forceinline__ void load_tap_3xtf32(uint8_t* dst, const CUtensorMap* hi, const CUtensorMap* lo,
-                                                uint64_t* bar, int t) {
+                                                uint64_t* bar, int k0, int row) {
   tma::mbar_expect_tx(bar, F_SLOT);
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
-    tma::load_2d(dst + p * F_PANEL, hi, bar, 32 * p, t * CO);
-    tma::load_2d(dst + (2 + p) * F_PANEL, lo, bar, 32 * p, t * CO);
+    tma::load_2d(dst + p * F_PANEL, hi, bar, k0 + 32 * p, row);
+    tma::load_2d(dst + (2 + p) * F_PANEL, lo, bar, k0 + 32 * p, row);
   }
 }
 
@@ -447,14 +487,22 @@ __device__ __forceinline__ void add_corner_f32(float4& s, float w, const float4&
 
 // CP: x's padded channels (40 or 64). xp [M, CP], offset [M, 81], whmap and
 // wlmap over the weight's hi and lo planes [27 x 64, CP] (zero past C),
-// bias [64] or null, out [M, 64]; f32.
-template <int CP>
+// bias [64] or null, out [M, 64]; f32. WIDE (CP = 64 only), as the bf16
+// route's: xp [M, 64 nch] walked in 27 nch steps (tap, chunk), the planes
+// [27 x cop, 64 nch], the N tile on the grid's y, bias [cop], out [M, cop].
+template <int CP, bool WIDE>
 __global__ void __launch_bounds__(F_NT, 16 / F_WARPS)
 deform_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap whmap, const __grid_constant__ CUtensorMap wlmap,
                          const float* __restrict__ x, const float* __restrict__ offset,
                          const float* __restrict__ bias, float* __restrict__ out, int D, int H, int W,
-                         int aperture) {
+                         int aperture, int nch_arg, int cop_arg) {
+  static_assert(!WIDE || CP == 64, "the wide form takes x in 64-channel chunks");
   using S = F32Smem<CP>;
+  const int nch = WIDE ? nch_arg : 1;              // x's chunks of CP channels
+  const int cop = WIDE ? cop_arg : CO;             // the output's padded channels
+  const int n0 = WIDE ? CO * (int)blockIdx.y : 0;  // the block's N tile
+  const int ldx = nch * CP;                        // x's row
+  const int steps = 27 * nch;
   constexpr int KS = CP / 8;               // k slices of a tap
   constexpr int ROUND = CP == 64 ? 4 : 5;  // k slices whose split fragments are in registers at once
   constexpr int GS = CP / 4;               // gather lanes per voxel, 4 channels each
@@ -489,7 +537,8 @@ deform_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap whmap, const __grid
   __syncthreads();
   if (tid == 0) {
 #pragma unroll
-    for (int t = 0; t < F_STAGES; ++t) load_tap_3xtf32(sm + S::w + t * F_SLOT, &whmap, &wlmap, &full[t], t);
+    for (int t = 0; t < F_STAGES; ++t)
+      load_tap_3xtf32(sm + S::w + t * F_SLOT, &whmap, &wlmap, &full[t], (t % nch) * CP, (t / nch) * cop + n0);
   }
 
   // the warp's corner phase: lane l takes its voxel l / 2, the z plane l % 2
@@ -507,12 +556,18 @@ deform_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap whmap, const __grid
 #pragma unroll
   for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
 
-  for (int tap = 0; tap < 27; ++tap) {
-    tap_corners(wcorner, cv, cz, cvx, tap, o0, o1, o2, D, H, W, aperture);
-    if (cvx.x >= 0 && tap + 1 < 27) {  // the next tap's offsets, in flight during the gather
-      o0 = __ldg(op + 3 * tap + 3);
-      o1 = __ldg(op + 3 * tap + 4);
-      o2 = __ldg(op + 3 * tap + 5);
+  for (int step = 0; step < steps; ++step) {
+    const int tap = WIDE ? step / nch : step;
+    const int cb = WIDE ? (step - tap * nch) * CP : 0;  // the step's first channel
+    if (cb == 0) {
+      tap_corners(wcorner, cv, cz, cvx, tap, o0, o1, o2, D, H, W, aperture);
+      if (cvx.x >= 0 && tap + 1 < 27) {  // the next tap's offsets, in flight during the gather
+        o0 = __ldg(op + 3 * tap + 3);
+        o1 = __ldg(op + 3 * tap + 4);
+        o2 = __ldg(op + 3 * tap + 5);
+      }
+    } else {
+      __syncwarp();  // the warp's fragment reads of the last step are done
     }
     // the gather: item i of a lane is voxel v, channels c .. c + 3
 #pragma unroll 1
@@ -525,7 +580,7 @@ deform_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap whmap, const __grid
       const int wbits[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
       float4 xr[8];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) xr[q] = __ldg(reinterpret_cast<const float4*>(x + (size_t)id[q] * CP + c));
+      for (int q = 0; q < 8; ++q) xr[q] = __ldg(reinterpret_cast<const float4*>(x + (size_t)id[q] * ldx + cb + c));
       float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
       for (int q = 0; q < 8; ++q) add_corner_f32(s, __int_as_float(wbits[q]), xr[q]);
@@ -533,8 +588,8 @@ deform_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap whmap, const __grid
     }
     __syncwarp();  // the warp's samples are stored before it reads them back as fragments
 
-    const int slot = tap % F_STAGES;
-    tma::mbar_wait(&full[slot], (tap / F_STAGES) & 1);
+    const int slot = step % F_STAGES;
+    tma::mbar_wait(&full[slot], (step / F_STAGES) & 1);
     const uint32_t sb = base + S::w + slot * F_SLOT;
 #pragma unroll
     for (int k0 = 0; k0 < KS; k0 += ROUND) {
@@ -553,10 +608,13 @@ deform_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap whmap, const __grid
       tc::wgmma_wait<0>();
     }
     // the warp is done with the slot; the last of the block's warps refills it
-    if (lane == 0 && tap + F_STAGES < 27) {
+    if (lane == 0 && step + F_STAGES < steps) {
       __threadfence_block();
-      if (atomicAdd(&done[slot], 1u) % F_WARPS == F_WARPS - 1)
-        load_tap_3xtf32(sm + S::w + slot * F_SLOT, &whmap, &wlmap, &full[slot], tap + F_STAGES);
+      if (atomicAdd(&done[slot], 1u) % F_WARPS == F_WARPS - 1) {
+        const int next = step + F_STAGES;
+        load_tap_3xtf32(sm + S::w + slot * F_SLOT, &whmap, &wlmap, &full[slot], (next % nch) * CP,
+                        (next / nch) * cop + n0);
+      }
     }
   }
 
@@ -568,30 +626,31 @@ deform_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap whmap, const __grid
     const int n = 8 * (e >> 2) + 2 * (lane & 3);
     if (h >= H || w0 + j >= W) continue;
     float2 o = make_float2(acc[e], acc[e + 1]);
-    if (bias != nullptr) o = make_float2(o.x + bias[n], o.y + bias[n + 1]);
-    *reinterpret_cast<float2*>(out + (size_t)(m_row + j) * CO + n) = o;
+    if (bias != nullptr) o = make_float2(o.x + bias[n0 + n], o.y + bias[n0 + n + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)(m_row + j) * cop + n0 + n) = o;
   }
 }
 
-template <int CP>
+// nch chunks of CP channels (1 unless WIDE), cop output channels (CO unless WIDE).
+template <int CP, bool WIDE>
 int launch_3xtf32(cudaStream_t s, const void* xp, const void* offset, const void* wsplit, const void* bias,
-                  void* out, int M, int D, int H, int W, int aperture) {
+                  void* out, int M, int D, int H, int W, int aperture, int nch, int cop) {
   CUtensorMap whm, wlm;
-  const uint64_t dims[2] = {(uint64_t)CP, (uint64_t)27 * CO};
-  const uint64_t stride[1] = {(uint64_t)CP * 4};
+  const uint64_t dims[2] = {(uint64_t)nch * CP, (uint64_t)27 * cop};
+  const uint64_t stride[1] = {(uint64_t)nch * CP * 4};
   const uint32_t box[2] = {32, CO};  // 128-byte inner boxes: the swizzle's span
-  const float* wlo = static_cast<const float*>(wsplit) + (size_t)27 * CO * CP;
+  const float* wlo = static_cast<const float*>(wsplit) + (size_t)27 * cop * nch * CP;
   int rc = tma::encode(&whm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, wsplit, dims, stride, box);
   if (rc == 0) rc = tma::encode(&wlm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, wlo, dims, stride, box);
   if (rc != 0) return rc;
-  auto kernel = deform_fwd_3xtf32_kernel<CP>;
+  auto kernel = deform_fwd_3xtf32_kernel<CP, WIDE>;
   static const cudaError_t opted_in =  // once per instantiation and process (one card)
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F32Smem<CP>::bytes);
   if (opted_in != cudaSuccess) return (int)opted_in;
   const int tiles = M / (H * W) * ((H + F_WARPS - 1) / F_WARPS) * ((W + WV - 1) / WV);
-  kernel<<<(unsigned)tiles, F_NT, F32Smem<CP>::bytes, s>>>(
+  kernel<<<dim3((unsigned)tiles, (unsigned)(cop / CO)), F_NT, F32Smem<CP>::bytes, s>>>(
       whm, wlm, static_cast<const float*>(xp), static_cast<const float*>(offset), static_cast<const float*>(bias),
-      static_cast<float*>(out), D, H, W, aperture);
+      static_cast<float*>(out), D, H, W, aperture, nch, cop);
   return (int)cudaGetLastError();
 }
 
@@ -613,8 +672,8 @@ extern "C" int dpf_deform_conv3d_3xtf32(const void* xp, const void* offset, cons
       ((uintptr_t)xp | (uintptr_t)wsplit | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return CP == 40 ? launch_3xtf32<40>(s, xp, offset, wsplit, bias, out, M, D, H, W, aperture)
-                  : launch_3xtf32<64>(s, xp, offset, wsplit, bias, out, M, D, H, W, aperture);
+  return CP == 40 ? launch_3xtf32<40, false>(s, xp, offset, wsplit, bias, out, M, D, H, W, aperture, 1, CO)
+                  : launch_3xtf32<64, false>(s, xp, offset, wsplit, bias, out, M, D, H, W, aperture, 1, CO);
 }
 
 // bf16 route (the tensor-core kernel). xp [B, D, H, W, CP] (x padded with
@@ -632,8 +691,29 @@ extern "C" int dpf_deform_conv3d_tc(const void* xp, const void* offset, const vo
       ((uintptr_t)xp | (uintptr_t)offset | (uintptr_t)wpk | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return CP == 40 ? launch_tc<40>(s, xp, offset, wpk, bias, out, M, D, H, W, aperture)
-                  : launch_tc<64>(s, xp, offset, wpk, bias, out, M, D, H, W, aperture);
+  return CP == 40 ? launch_tc<40, false>(s, xp, offset, wpk, bias, out, M, D, H, W, aperture, 1, CO)
+                  : launch_tc<64, false>(s, xp, offset, wpk, bias, out, M, D, H, W, aperture, 1, CO);
+}
+
+// The other widths, both routes (is_bf16 selects bf16, else f32): x padded
+// to CPX = 64 nch channels (xp [B, D, H, W, CPX]) and the output to COP, a
+// multiple of 64 (out [B, D, H, W, COP], bias [COP] or null, zero past Co).
+// bf16: wpk [27, CPX, COP] (each tap's weight rows, zero past C and Co).
+// f32: wpk [2][27, COP, CPX] (each tap's weight plane, K contiguous, split
+// into TF32 hi and lo). Returns cudaErrorInvalidValue for CPX or COP not a
+// positive multiple of 64, C outside 1..CPX, M < 1 or an xp, offset (bf16),
+// wpk or out not 16-byte aligned, else the first error of the tensor maps'
+// encoding or the launch.
+extern "C" int dpf_deform_conv3d_wide(const void* xp, const void* offset, const void* wpk, const void* bias,
+                                      void* out, int B, int D, int H, int W, int C, int CPX, int COP,
+                                      int aperture, int is_bf16, void* stream) {
+  const int M = B * D * H * W;
+  if (CPX < 64 || CPX % 64 != 0 || COP < CO || COP % CO != 0 || C < 1 || C > CPX || M < 1 ||
+      ((uintptr_t)xp | (is_bf16 ? (uintptr_t)offset : 0) | (uintptr_t)wpk | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_tc<64, true>(s, xp, offset, wpk, bias, out, M, D, H, W, aperture, CPX / 64, COP)
+                 : launch_3xtf32<64, true>(s, xp, offset, wpk, bias, out, M, D, H, W, aperture, CPX / 64, COP);
 }
 
 // Dynamic shared memory of the tensor-core block for CP = 40 or 64, for the

@@ -128,4 +128,67 @@ __device__ __forceinline__ void pixel_planes(const float (&R)[3][D], float4 u, f
   for (int d = 0; d < D; ++d) P[d] = fmaf(u.z, R[2][d], fmaf(u.y, R[1][d], u.x * R[0][d]));
 }
 
+// ----- more than MAXD planes (K3's and K4's wide kernels): D at run time.
+// The planes no longer fit in registers, so a pixel walks them in order,
+// one plane and the next at a time (the bins between planes d and d + 1
+// are those with lo = d), and reads each again for every pass; the bin
+// table is device memory, f32 [5][4D] as `Bins` lays out its rows, and the
+// taps come from `wide_lo`, `tap_lo`'s formula at run time.
+
+__device__ __forceinline__ int wide_lo(int j, int D) { return (j * (D - 1)) / (FACTOR * D - 1); }
+// The first bin whose lo plane is d (D > 1).
+__device__ __forceinline__ int wide_first_bin(int d, int D) { return (d * (FACTOR * D - 1) + D - 2) / (D - 1); }
+
+// A pixel's coarse reads: rows r0 and r1 (weights y0, y1) of each plane of
+// `cb` [D, h, w] on the quad's columns, weighed by u (rows_interp then
+// pixel_planes, the same operations in the same order).
+template <typename T>
+struct WidePixel {
+  const T* cb;
+  size_t hw;
+  int w, r0, r1;
+  float y0, y1;
+  Quad qd;
+  float4 u;
+  __device__ __forceinline__ float plane(int d) const {
+    const T* p0 = cb + d * hw + (size_t)r0 * w;
+    const T* p1 = cb + d * hw + (size_t)r1 * w;
+    float R[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) R[c] = fmaf(y1, to_f32(p1[qd.c[c]]), y0 * to_f32(p0[qd.c[c]]));
+    return fmaf(u.z, R[2], fmaf(u.y, R[1], u.x * R[0]));
+  }
+};
+
+// The pixel's largest bin logit, and the sums of its exps shifted by it
+// (sum, and num against the bin values): the largest bin's exp2 is 1, so
+// the sum cannot underflow.
+template <typename T>
+__device__ __forceinline__ float wide_softmax(const WidePixel<T>& px, const float* __restrict__ bins, int D,
+                                              float& sum, float& num) {
+  const int nb = FACTOR * D;
+  const float *wa = bins, *wb = bins + nb, *dv = bins + 2 * nb;
+  float m = -INFINITY, plo = px.plane(0);
+  int j = 0;
+  for (int d = 0; d < D; ++d) {
+    const float phi = d + 1 < D ? px.plane(d + 1) : plo;
+    for (; j < nb && wide_lo(j, D) == d; ++j) m = fmaxf(m, fmaf(__ldg(wb + j), phi, __ldg(wa + j) * plo));
+    plo = phi;
+  }
+  sum = 0.0f;
+  num = 0.0f;
+  plo = (px.plane(0) - m) * LOG2E;
+  j = 0;
+  for (int d = 0; d < D; ++d) {
+    const float phi = d + 1 < D ? (px.plane(d + 1) - m) * LOG2E : plo;
+    for (; j < nb && wide_lo(j, D) == d; ++j) {
+      const float e = ex2(fmaf(__ldg(wb + j), phi, __ldg(wa + j) * plo));
+      sum += e;
+      num = fmaf(__ldg(dv + j), e, num);
+    }
+    plo = phi;
+  }
+  return m;
+}
+
 }  // namespace fsam

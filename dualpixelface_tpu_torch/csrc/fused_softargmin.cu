@@ -19,7 +19,8 @@
 // the max over the planes, so each bin takes one exp2 and the running
 // rescales of an online softmax are gone (a pixel whose exps underflow is
 // redone with the largest bin); the 4 outputs go out as one vector store.
-// Any output height; D <= 16.
+// Any output height. D <= 16 compiles the taps in (one instantiation per
+// D); above, `fsam_fwd_wide_kernel` takes D at run time (fsam.cuh).
 #include <cstring>
 
 #include "fsam.cuh"
@@ -130,7 +131,57 @@ int dispatch(int D, const void* cost, void* out, int B, int h, int w, const int*
   return (int)cudaErrorInvalidValue;
 }
 
+// D > MAXD: one thread per quad as above, each pixel through
+// `wide_softmax` (the planes walked twice, the bins shifted by the largest).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fsam_fwd_wide_kernel(const T* __restrict__ cost, T* __restrict__ out, int B, int D, int h, int w,
+                     const int2* __restrict__ ytap, const float2* __restrict__ ywt, const float4* __restrict__ xu,
+                     const float* __restrict__ bins) {
+  const int Hp = FACTOR * h;
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (t >= (long long)B * Hp * w) return;
+  const int q = (int)(t % w);
+  const long long by = t / w;
+  const int Y = (int)(by % Hp), b = (int)(by / Hp);
+  const int2 yi = __ldg(ytap + Y);
+  const float2 yw = __ldg(ywt + Y);
+  WidePixel<T> px{cost + (size_t)b * D * h * w, (size_t)h * w, w, yi.x, yi.y, yw.x, yw.y, Quad(q, w),
+                  make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+  float res[4];
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k) {
+    px.u = __ldg(xu + 4 * q + k);
+    float sum, num;
+    wide_softmax<T>(px, bins, D, sum, num);
+    res[k] = num / sum;
+  }
+  Vec4<T>::store(out + ((size_t)b * Hp + Y) * (FACTOR * w) + 4 * q, res);
+}
+
 }  // namespace
+
+// D > 16 (any D): as `dpf_fused_softargmin`, the bin table on the device,
+// f32 [5, 4D] (the rows of `Bins`, each 4D long). One launch; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for D <= 16.
+extern "C" int dpf_fused_softargmin_wide(const void* cost, void* out, int B, int D, int h, int w, const int* ytap,
+                                         const float* ywt, const float* xu, const float* bins, int is_bf16,
+                                         void* stream) {
+  if (D <= MAXD) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)B * FACTOR * h * w;
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  if (is_bf16)
+    fsam_fwd_wide_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(cost), static_cast<__nv_bfloat16*>(out), B, D, h, w,
+        reinterpret_cast<const int2*>(ytap), reinterpret_cast<const float2*>(ywt),
+        reinterpret_cast<const float4*>(xu), bins);
+  else
+    fsam_fwd_wide_kernel<float><<<blocks, THREADS, 0, s>>>(
+        static_cast<const float*>(cost), static_cast<float*>(out), B, D, h, w, reinterpret_cast<const int2*>(ytap),
+        reinterpret_cast<const float2*>(ywt), reinterpret_cast<const float4*>(xu), bins);
+  return (int)cudaGetLastError();
+}
 
 // cost [B, D, h, w] (1 <= D <= 16), out [B, 4h, 4w]; one dtype (is_bf16
 // selects bf16, else f32), on the device. ytap int32 [4h, 2] and ywt f32

@@ -31,7 +31,9 @@
 // its rows into its own shared-memory copy of the tile (one lane per
 // column: no atomics), and the copies are summed in a fixed order and
 // written once. One launch, no f32 scratch in device memory, and the same
-// sums in the same order on every run.
+// sums in the same order on every run. D <= 16 compiles the taps in (one
+// instantiation per D); above, `fsam_bwd_wide_kernel` takes D at run time
+// and a block owns 16 of the planes (fsam.cuh).
 #include <cstring>
 
 #include "fsam.cuh"
@@ -185,7 +187,161 @@ int dispatch(int D, const void* cost, const void* gout, void* dcost, int B, int 
   return (int)cudaErrorInvalidValue;
 }
 
+// D > MAXD: the planes in chunks of DC = 16. A block owns one chunk of
+// its tile's planes (the grid's z: batch x chunk) and recomputes, for every
+// output pixel of its band, the whole softmax (`wide_softmax`: the planes
+// walked twice, the bins shifted by the largest), then, a third walk over
+// the planes around its chunk, the plane sums S0 and S1 of the bins that
+// touch the chunk; the rest is the kernel above with DC planes.
+constexpr int DC = MAXD;
+
+template <typename T>
+__device__ __forceinline__ void wide_pixel_gd(const WidePixel<T>& px, float g, const float* __restrict__ bins, int D,
+                                              int d0, float (&S1)[DC]) {
+  const int nb = FACTOR * D;
+  const float *wa = bins, *wb = bins + nb, *wadv = bins + 3 * nb, *wbdv = bins + 4 * nb;
+  float sum, num;
+  const float m = wide_softmax<T>(px, bins, D, sum, num);
+  float S0[DC];
+#pragma unroll
+  for (int d = 0; d < DC; ++d) S0[d] = S1[d] = 0.0f;
+  float plo;
+  if (d0 > 0) {  // the bins between planes d0 - 1 and d0 give plane d0 their hi share
+    plo = (px.plane(d0 - 1) - m) * LOG2E;
+    const float phi = (px.plane(d0) - m) * LOG2E;
+    for (int j = wide_first_bin(d0 - 1, D); j < nb && wide_lo(j, D) == d0 - 1; ++j) {
+      const float e = ex2(fmaf(__ldg(wb + j), phi, __ldg(wa + j) * plo));
+      S0[0] = fmaf(__ldg(wb + j), e, S0[0]);
+      S1[0] = fmaf(__ldg(wbdv + j), e, S1[0]);
+    }
+    plo = phi;
+  } else {
+    plo = (px.plane(0) - m) * LOG2E;
+  }
+#pragma unroll
+  for (int dd = 0; dd < DC; ++dd) {
+    const int d = d0 + dd;
+    if (d >= D) break;
+    const float phi = d + 1 < D ? (px.plane(d + 1) - m) * LOG2E : plo;
+    for (int j = wide_first_bin(d, D); j < nb && wide_lo(j, D) == d; ++j) {
+      const float e = ex2(fmaf(__ldg(wb + j), phi, __ldg(wa + j) * plo));
+      S0[dd] = fmaf(__ldg(wa + j), e, S0[dd]);
+      S1[dd] = fmaf(__ldg(wadv + j), e, S1[dd]);
+      if (d + 1 == D) {  // the last plane's bins: lo = hi
+        S0[dd] = fmaf(__ldg(wb + j), e, S0[dd]);
+        S1[dd] = fmaf(__ldg(wbdv + j), e, S1[dd]);
+      } else if (dd + 1 < DC) {
+        S0[dd + 1] = fmaf(__ldg(wb + j), e, S0[dd + 1]);
+        S1[dd + 1] = fmaf(__ldg(wbdv + j), e, S1[dd + 1]);
+      }
+    }
+    plo = phi;
+  }
+  const float rs = __frcp_rn(sum), out = num * rs, gi = g * rs;
+#pragma unroll
+  for (int d = 0; d < DC; ++d) S1[d] = gi * fmaf(-out, S0[d], S1[d]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+fsam_bwd_wide_kernel(const T* __restrict__ cost, const T* __restrict__ gout, T* __restrict__ dcost, int D, int h,
+                     int w, const int2* __restrict__ ytap, const float2* __restrict__ ywt,
+                     const float4* __restrict__ xu, const int2* __restrict__ bands, const float* __restrict__ bins) {
+  extern __shared__ float acc[];  // [NW][RB][DC][32]: each warp's copy of the tile's chunk
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nchunk = (D + DC - 1) / DC;
+  const int c0 = blockIdx.x * SPAN, r0 = blockIdx.y * RB, b = blockIdx.z / nchunk;
+  const int d0 = (blockIdx.z - b * nchunk) * DC;
+  const int Hp = FACTOR * h, Wp = FACTOR * w;
+  const int q = c0 - 1 + lane;  // this lane's quad and the column it gathers
+  const bool active = q >= 0 && q < w;
+
+  for (int i = threadIdx.x; i < NW * RB * DC * 32; i += THREADS) acc[i] = 0.0f;
+  __syncthreads();
+
+  float* mine = acc + warp * RB * DC * 32 + lane;
+  const int2 band = __ldg(bands + blockIdx.y);
+  for (int Y = band.x + warp; Y < band.y; Y += NW) {  // warp-uniform
+    const int2 yi = __ldg(ytap + Y);
+    const float2 yw = __ldg(ywt + Y);
+    WidePixel<T> px{cost + (size_t)b * D * h * w, (size_t)h * w, w, yi.x, yi.y, yw.x, yw.y, Quad(q, w),
+                    make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+    const T* grow = gout + ((size_t)b * Hp + Y) * Wp + 4 * q;
+    float col[DC];  // column q's share of this output row
+#pragma unroll
+    for (int d = 0; d < DC; ++d) col[d] = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float gd[DC];
+#pragma unroll
+      for (int d = 0; d < DC; ++d) gd[d] = 0.0f;
+      if (active) {
+        u = __ldg(xu + 4 * q + k);
+        px.u = u;
+        wide_pixel_gd<T>(px, to_f32(grow[k]), bins, D, d0, gd);
+      }
+      gather_columns<DC>(col, u, gd);
+    }
+    const bool r0in = yi.x >= r0 && yi.x < r0 + RB;
+    const bool r1in = yw.y != 0.0f && yi.y >= r0 && yi.y < r0 + RB;
+    float* row0 = mine + (yi.x - r0) * DC * 32;
+    float* row1 = mine + (yi.y - r0) * DC * 32;
+#pragma unroll
+    for (int d = 0; d < DC; ++d) {
+      if (r0in) row0[d * 32] += yw.x * col[d];
+      if (r1in) row1[d * 32] += yw.y * col[d];
+    }
+  }
+  __syncthreads();
+
+  // the tile's chunk: lanes 1..30 of the copies, summed in warp order, written once
+  for (int i = threadIdx.x; i < RB * DC * 32; i += THREADS) {
+    const int L = i & 31, d = (i >> 5) % DC, r = i / (32 * DC);
+    const int col = c0 - 1 + L, yc = r0 + r;
+    if (L == 0 || L == 31 || col >= w || yc >= h || d0 + d >= D) continue;
+    float v = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) v += acc[k * RB * DC * 32 + i];
+    dcost[(((size_t)b * D + d0 + d) * h + yc) * w + col] = from_f32<T>(v);
+  }
+}
+
 }  // namespace
+
+// D > 16 (any D): as `dpf_fused_softargmin_bwd`, the bin table on the
+// device, f32 [5, 4D] (the rows of `Bins`, each 4D long). One launch;
+// returns cudaGetLastError(), or cudaErrorInvalidValue for D <= 16 or
+// band_rows other than RB.
+extern "C" int dpf_fused_softargmin_bwd_wide(const void* cost, const void* gout, void* dcost, int B, int D, int h,
+                                             int w, const int* ytap, const float* ywt, const float* xu,
+                                             const int* bands, int band_rows, const float* bins, int is_bf16,
+                                             void* stream) {
+  if (D <= MAXD || band_rows != RB) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int smem = smem_bytes(DC);
+  const dim3 grid((unsigned)((w + SPAN - 1) / SPAN), (unsigned)((h + RB - 1) / RB),
+                  (unsigned)(B * ((D + DC - 1) / DC)));
+  if (is_bf16) {
+    static const int attr = (int)cudaFuncSetAttribute(fsam_bwd_wide_kernel<__nv_bfloat16>,
+                                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != 0) return attr;
+    fsam_bwd_wide_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(cost), static_cast<const __nv_bfloat16*>(gout),
+        static_cast<__nv_bfloat16*>(dcost), D, h, w, reinterpret_cast<const int2*>(ytap),
+        reinterpret_cast<const float2*>(ywt), reinterpret_cast<const float4*>(xu),
+        reinterpret_cast<const int2*>(bands), bins);
+  } else {
+    static const int attr = (int)cudaFuncSetAttribute(fsam_bwd_wide_kernel<float>,
+                                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != 0) return attr;
+    fsam_bwd_wide_kernel<float><<<grid, THREADS, smem, s>>>(
+        static_cast<const float*>(cost), static_cast<const float*>(gout), static_cast<float*>(dcost), D, h, w,
+        reinterpret_cast<const int2*>(ytap), reinterpret_cast<const float2*>(ywt),
+        reinterpret_cast<const float4*>(xu), reinterpret_cast<const int2*>(bands), bins);
+  }
+  return (int)cudaGetLastError();
+}
 
 // The dynamic shared memory of K4's block for D coarse planes.
 extern "C" int dpf_fused_softargmin_bwd_smem_bytes(int D) { return smem_bytes(D); }

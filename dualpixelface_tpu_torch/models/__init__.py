@@ -111,7 +111,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         if isinstance(mod, DeformConvPack3D):
             bound = 1.0 / math.sqrt(math.prod(mod.weight.shape[1:]))
             mod.weight.copy_((torch.rand(mod.weight.shape, generator=g) * 2 - 1) * bound)
-            mod.bias.copy_((torch.rand(mod.bias.shape, generator=g) * 2 - 1) * bound)
+            if mod.bias is not None:
+                mod.bias.copy_((torch.rand(mod.bias.shape, generator=g) * 2 - 1) * bound)
             mod.conv_offset.weight.zero_()
             mod.conv_offset.bias.zero_()
     return model

@@ -9,10 +9,13 @@ gradient back onto the coarse logits, accumulated in f32 and returned in
 the cost's dtype (JAX casts it by `astype`). The CUDA kernels are
 `csrc/fused_softargmin.cu` and `csrc/fused_softargmin_bwd.cu` (source notes
 there, and in `csrc/fsam.cuh`). Unlike the TPU kernels they take any
-output height; they upsample by 4 and take at most 16 coarse planes, and
-their host operands (`_Plan`: the y taps, each output column's weights on
-its quad's three coarse columns, K4's row bands, the bin weights and
-values) are made once per shape.
+output height; they upsample by 4 and take any number of coarse planes, as
+the TPU kernels do: up to MAX_PLANES with the D operator's taps compiled
+in (one instantiation per D), above through their wide forms, which take D
+at run time and the bin table from device memory. Their host operands
+(`_Plan`: the y taps, each output column's weights on its quad's three
+coarse columns, K4's row bands, the bin weights and values) are made once
+per shape.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; anything else raises. `fused_softargmin` is
@@ -32,7 +35,7 @@ from dualpixelface_tpu_torch.ops.kernels import _build
 from dualpixelface_tpu_torch.ops.resize import _linear_matrix
 
 FACTOR = 4  # the kernels' upsampling factor (csrc/fsam.cuh FACTOR)
-MAX_PLANES = 16  # coarse D the kernels hold per pixel (csrc/fsam.cuh MAXD)
+MAX_PLANES = 16  # coarse D the compiled-tap kernels hold per pixel (csrc/fsam.cuh MAXD); above, the wide forms
 MAX_BINS = FACTOR * MAX_PLANES
 BAND_ROWS = 8  # coarse rows a K4 block owns (csrc/fused_softargmin_bwd.cu RB)
 
@@ -78,15 +81,16 @@ def static_d_taps(d: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def d_bins(d: int, dvals: np.ndarray) -> np.ndarray:
-    """The kernels' `Bins` parameter, f32 [5, MAX_BINS]: per bin the weight
-    of its lo plane, of its hi plane (`static_d_taps`), its value, and the
-    two weights times the value. Raises if `_two_taps` puts a non-zero
-    weight on another plane than the static taps."""
+    """The kernels' `Bins` parameter, f32 [5, MAX_BINS] (the wide forms'
+    bin table, [5, 4d], for d > MAX_PLANES): per bin the weight of its lo
+    plane, of its hi plane (`static_d_taps`), its value, and the two weights
+    times the value. Raises if `_two_taps` puts a non-zero weight on another
+    plane than the static taps."""
     idx, wt = _two_taps(FACTOR * d, d)
     lo, hi = static_d_taps(d)
     if not (np.array_equal(idx[:, 0], lo) and np.all((wt[:, 1] == 0) | (idx[:, 1] == hi))):
         raise RuntimeError(f"fused_softargmin: the D operator's taps for D={d} differ from the kernels' static taps")
-    out = np.zeros((5, MAX_BINS), np.float32)
+    out = np.zeros((5, max(MAX_BINS, FACTOR * d)), np.float32)
     out[:, : FACTOR * d] = wt[:, 0], wt[:, 1], dvals, wt[:, 0] * dvals, wt[:, 1] * dvals
     return out
 
@@ -124,19 +128,22 @@ def band_rows(h: int, rb: int) -> np.ndarray:
 
 class _Plan:
     """One shape's launch operands, made once: the y taps, the x quad
-    weights and K4's bands on the device, the `Bins` parameter on the host,
-    and the two C entry points."""
+    weights and K4's bands on the device, the bin table (the `Bins`
+    parameter on the host, or for d > MAX_PLANES the wide forms' table on
+    the device), and the two C entry points."""
 
     @torch.inference_mode(False)  # cached: usable in autograd after serving
     def __init__(self, d, h, w, dvals: np.ndarray, device):
         idx, wt = _two_taps(FACTOR * h, h)
-        self.tensors = [torch.as_tensor(a, device=device) for a in
-                        (idx, wt, x_quad_weights(w), band_rows(h, BAND_ROWS))]
-        self.ytap, self.ywt, self.xu, self.bands = (t.data_ptr() for t in self.tensors)
         self.bins = d_bins(d, dvals)
-        self.bins_ptr = self.bins.ctypes.data
-        self.fwd = _build.entry("fused_softargmin", "dpf_fused_softargmin", _FWD_ARGS)
-        self.bwd = _build.entry("fused_softargmin_bwd", "dpf_fused_softargmin_bwd", _BWD_ARGS)
+        wide = d > MAX_PLANES
+        self.tensors = [torch.as_tensor(a, device=device) for a in
+                        (idx, wt, x_quad_weights(w), band_rows(h, BAND_ROWS)) + ((self.bins,) if wide else ())]
+        self.ytap, self.ywt, self.xu, self.bands = (t.data_ptr() for t in self.tensors[:4])
+        self.bins_ptr = self.tensors[4].data_ptr() if wide else self.bins.ctypes.data
+        suffix = "_wide" if wide else ""
+        self.fwd = _build.entry("fused_softargmin", "dpf_fused_softargmin" + suffix, _FWD_ARGS)
+        self.bwd = _build.entry("fused_softargmin_bwd", "dpf_fused_softargmin_bwd" + suffix, _BWD_ARGS)
 
 
 @functools.lru_cache(maxsize=16)
@@ -169,16 +176,14 @@ def _cuda_plan(name, cost, dvals, factor, **more) -> _Plan:
     b, d, h, w = cost.shape
     if factor != FACTOR:
         raise ValueError(f"{name}: the kernels upsample by {FACTOR}, got factor {factor}")
-    if d > MAX_PLANES:
-        raise ValueError(f"{name}: the kernel takes at most {MAX_PLANES} coarse planes, got {d}")
     if b * d * h * w >= 2**31 or b * h * w * factor * factor >= 2**31:
         raise ValueError(f"{name}: tensor too large for the kernel's 32-bit indexing")
     return _plan(d, h, w, dvals.tobytes(), cost.device)
 
 
 # the C entry points' arguments: (cost, out) or (cost, g, dcost), B, D, h, w,
-# the device tables (ytap, ywt, xu; K4 also bands and BAND_ROWS), the host `Bins`,
-# is_bf16, the stream
+# the device tables (ytap, ywt, xu; K4 also bands and BAND_ROWS), the host `Bins`
+# (the wide forms: the device bin table), is_bf16, the stream
 _FWD_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
              + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])

@@ -65,23 +65,30 @@ def device_busy_us(events) -> float:
     return busy
 
 
+_PROFILE_ATTEMPTS = 3
+
+
 def device_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean device ms of `fn()` over `iters` calls after `warmup`: the union
     of the device intervals (kernels, memsets, copies) that torch.profiler
     records for the calls, over `iters`. Unlike `cuda_ms` it leaves out the
-    host's dispatch between launches."""
+    host's dispatch between launches. A profiling session that records no
+    device activity at all (seen now and then on an H100 80GB HBM3, in a
+    fresh process too) is run again, up to `_PROFILE_ATTEMPTS` sessions in
+    all."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise RuntimeError("device_ms: the profiler recorded no device activity")
-    return device_busy_us(events) / 1e3 / iters
+    for _ in range(_PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return device_busy_us(events) / 1e3 / iters
+    raise RuntimeError(f"device_ms: the profiler recorded no device activity in {_PROFILE_ATTEMPTS} sessions")
 
 
 def cudnn_conv3d_calls(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> dict:

@@ -51,20 +51,20 @@ _GUARDS = ("#ifdef NO_CONTRACTION\n#define NO_CONTRACTION_FLAG 1\n#else\n#define
            "#define K1_X_LOAD(q) make_uint4(0x3f803f80u ^ (unsigned)(id[q] & 7), 0x3f803f80u, 0x3f803f80u, 0x3f803f80u)\n"
            "#define K1_X_LOAD4(q) make_float4(1.0f + (float)(id[q] & 7), 1.0f, 1.0f, 1.0f)\n"
            "#elif defined(L1_GATHERS)\n"
-           "#define K1_X_LOAD(q) __ldg(reinterpret_cast<const uint4*>(x + (size_t)id[0] * CP + c))\n"
-           "#define K1_X_LOAD4(q) __ldg(reinterpret_cast<const float4*>(x + (size_t)id[0] * CP + c))\n"
-           "#else\n#define K1_X_LOAD(q) __ldg(reinterpret_cast<const uint4*>(x + (size_t)id[q] * CP + c))\n"
-           "#define K1_X_LOAD4(q) __ldg(reinterpret_cast<const float4*>(x + (size_t)id[q] * CP + c))\n#endif\n")
+           "#define K1_X_LOAD(q) __ldg(reinterpret_cast<const uint4*>(x + (size_t)id[0] * ldx + cb + c))\n"
+           "#define K1_X_LOAD4(q) __ldg(reinterpret_cast<const float4*>(x + (size_t)id[0] * ldx + cb + c))\n"
+           "#else\n#define K1_X_LOAD(q) __ldg(reinterpret_cast<const uint4*>(x + (size_t)id[q] * ldx + cb + c))\n"
+           "#define K1_X_LOAD4(q) __ldg(reinterpret_cast<const float4*>(x + (size_t)id[q] * ldx + cb + c))\n#endif\n")
 
 # (text, replacement) pairs that put each part under its macro
 PATCHES = [
     ('#include "tma.cuh"\n', '#include "tma.cuh"\n' + _GUARDS),
-    ("xr[q] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)id[q] * CP + c));", "xr[q] = K1_X_LOAD(q);"),
+    ("xr[q] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)id[q] * ldx + cb + c));", "xr[q] = K1_X_LOAD(q);"),
     ("#pragma unroll\n    for (int kk = 0; kk < KP / 16; ++kk) tc::Wgmma<64, 0, 1>::mma(",
      "#ifndef NO_CONTRACTION\n#pragma unroll\n    for (int kk = 0; kk < KP / 16; ++kk) tc::Wgmma<64, 0, 1>::mma("),
     ("tc::desc(sb + kk * 2048));\n", "tc::desc(sb + kk * 2048));\n#endif\n"),
     # the f32 route's kernel, in the same source
-    ("xr[q] = __ldg(reinterpret_cast<const float4*>(x + (size_t)id[q] * CP + c));", "xr[q] = K1_X_LOAD4(q);"),
+    ("xr[q] = __ldg(reinterpret_cast<const float4*>(x + (size_t)id[q] * ldx + cb + c));", "xr[q] = K1_X_LOAD4(q);"),
     ("        tc::mma_3xtf32<CO>(acc, ", "        if (!NO_CONTRACTION_FLAG) tc::mma_3xtf32<CO>(acc, "),
     ("  s.x = __fadd_rn(s.x, __fmul_rn(w, v.x));\n",
      "#ifdef FMA_SAMPLES\n  s.x = fmaf(w, v.x, s.x);\n  s.y = fmaf(w, v.y, s.y);\n  s.z = fmaf(w, v.z, s.z);\n"

@@ -52,29 +52,33 @@ _GUARDS = ("#ifdef NO_MAIN\n#define NO_MAIN_FLAG 1\n#else\n#define NO_MAIN_FLAG 
            "#ifdef NO_ATOMICS\n#define NO_ATOMICS_FLAG 1\n#else\n#define NO_ATOMICS_FLAG 0\n#endif\n"
            "#ifdef NO_GATHERS\n#define K2_X_LOAD(id) make_uint2(0x3f803f80u ^ (unsigned)((id) & 7), 0x3f803f80u)\n"
            "#define K2_X_LOAD4(id) make_float4(1.0f + (float)((id) & 7), 1.0f, 1.0f, 1.0f)\n"
-           "#else\n#define K2_X_LOAD(id) __ldg(reinterpret_cast<const uint2*>(x + (size_t)(id) * CP + c))\n"
+           "#else\n#define K2_X_LOAD(id) __ldg(reinterpret_cast<const uint2*>(x + (size_t)(id) * ldx + cb + c))\n"
            "#define K2_X_LOAD4(id) __ldg(reinterpret_cast<const float4*>(x + (size_t)(id) * CP + c))\n#endif\n")
 
 # (text, replacement) pairs that put each part under its macro, per design
 PATCHES = {
     "tensor_cores": [
         ('#include "tma.cuh"\n', '#include "tma.cuh"\n' + _GUARDS),
-        ("        for (int h = 0; h < 2; ++h) tc::Wgmma<CP>::mma(",
-         "#ifndef NO_CONTRACTIONS\n        for (int h = 0; h < 2; ++h) tc::Wgmma<CP>::mma("),
-        ("tc::desc(gt + h * 64 * 128 + kk * 32), db);\n", "tc::desc(gt + h * 64 * 128 + kk * 32), db);\n#endif\n"),
+        # the tuned form's gcols product (the wide form's, indented deeper, is left as it is)
+        ("\n          for (int h = 0; h < 2; ++h) tc::Wgmma<CP>::mma(accg[h], tc::desc(gt + h * 64 * 128 + kk * 32), db);\n",
+         "\n#ifndef NO_CONTRACTIONS\n          for (int h = 0; h < 2; ++h) "
+         "tc::Wgmma<CP>::mma(accg[h], tc::desc(gt + h * 64 * 128 + kk * 32), db);\n#endif\n"),
         ("      for (int kk = 0; kk < TBM / 16; ++kk)\n        tc::Wgmma<64, 1, 1>::mma(",
          "#ifndef NO_CONTRACTIONS\n      for (int kk = 0; kk < TBM / 16; ++kk)\n        tc::Wgmma<64, 1, 1>::mma("),
         ("tc::desc(gt + kk * 2048));\n", "tc::desc(gt + kk * 2048));\n#endif\n"),
-        ("__ldg(reinterpret_cast<const uint2*>(x + (size_t)ids[q] * CP + c))", "K2_X_LOAD(ids[q])"),
-        ("          if (wq != 0.0f && c < C) red_add4(", "#ifndef NO_ATOMICS\n          if (wq != 0.0f && c < C) red_add4("),
+        ("__ldg(reinterpret_cast<const uint2*>(x + (size_t)ids[q] * ldx + cb + c))", "K2_X_LOAD(ids[q])"),
+        ("            if (wq != 0.0f && cb + c < C)\n              red_add4(",
+         "#ifndef NO_ATOMICS\n            if (wq != 0.0f && cb + c < C)\n              red_add4("),
         ("wq * g01.x, wq * g01.y, wq * g23.x, wq * g23.y);\n", "wq * g01.x, wq * g01.y, wq * g23.x, wq * g23.y);\n#endif\n"),
-        ("  rc = CP == 40 ? launch_tc<40>", "  rc = NO_MAIN_FLAG ? 0 : CP == 40 ? launch_tc<40>"),
+        ("  rc = CP == 40 ? launch_tc<40, false>", "  rc = NO_MAIN_FLAG ? 0 : CP == 40 ? launch_tc<40, false>"),
         # the f32 route's kernel, in the same source
-        ("          tc::mma_3xtf32<CP>(accg, ", "          if (!NO_CONTRACTIONS_FLAG) tc::mma_3xtf32<CP>(accg, "),
-        ("          tc::mma_3xtf32<CP>(accw, ", "          if (!NO_CONTRACTIONS_FLAG) tc::mma_3xtf32<CP>(accw, "),
+        # the tuned kernel's (`deform_bwd_3xtf32_kernel`; the wide kernel's texts differ)
+        ("\n          tc::mma_3xtf32<CP>(accg, ", "\n          if (!NO_CONTRACTIONS_FLAG) tc::mma_3xtf32<CP>(accg, "),
+        ("          tc::mma_3xtf32<CP>(accw, ah[kk], al[kk], cb, ",
+         "          if (!NO_CONTRACTIONS_FLAG) tc::mma_3xtf32<CP>(accw, ah[kk], al[kk], cb, "),
         ("__ldg(reinterpret_cast<const float4*>(x + (size_t)ids[q] * CP + c))", "K2_X_LOAD4(ids[q])"),
         ("          if (c < C && wq != 0.0f) red_add4(", "          if (!NO_ATOMICS_FLAG && c < C && wq != 0.0f) red_add4("),
-        ("  rc = CP == 40 ? launch_3xtf32<40>", "  rc = NO_MAIN_FLAG ? 0 : CP == 40 ? launch_3xtf32<40>"),
+        ("  rc = CP == 40 ? launch_3xtf32<40, false>", "  rc = NO_MAIN_FLAG ? 0 : CP == 40 ? launch_3xtf32<40, false>"),
     ],
     "simt_bf16": [
         ('#include "common.cuh"\n', '#include "common.cuh"\n' + _GUARDS),

@@ -12,7 +12,8 @@ psmnet, nnet, dpnet and BTS's decoder (`model=`), the port's own names,
 which follow the JAX tree, with Flax's automatic names (`Conv_0`,
 `ResidualBlock_3`, `BasicBlock_12`, `TorchBlock_2`, ...) mapped in their
 call order; for BTS's encoder, torchvision's names; for the face parser
-(`face_seg`), the reference's; for `DeformConvPack2D`, torch's. Flax conv
+(`face_seg`), the reference's; for `DeformConvPack2D`, torch's; for the
+3-D deformable convs (`deform_conv3d`), the reference's. Flax conv
 kernels [*k, I, O] become torch [O, I, *k]; transposed-conv kernels
 [*k, O, I] become torch ConvTranspose [I, O, *k].
 """
@@ -350,17 +351,21 @@ def _face_seg(m: _Mapper) -> None:
         m.conv(f"{name}/Conv_0", f"{name}.conv_out")
 
 
-def _deform_conv2d(m: _Mapper) -> None:
-    """`DeformConvPack2D`: weight [KH, KW, Cin, Cout] to [Cout, Cin, KH,
-    KW], the bias where the module has one, and conv_offset."""
+def _deform_conv(m: _Mapper) -> None:
+    """`DeformConvPack2D`, and the 3-D `DeformConv3D`, `DeformConvPack3D`
+    and `DeformConvPack3D_d`: weight [*k, Cin, Cout] to [Cout, Cin, *k], the
+    bias where the module has one, and the offset head `conv_offset` where
+    it has one (its kernel and bias: a Flax `nn.Conv`, or at the 3x3x3 /
+    stride 1 / pad 1 geometry the same parameters of `_DSliceConv3D`)."""
     m.sd["weight"] = _f2t_conv(m.params["weight"])
     if "bias" in m.params:
         m.sd["bias"] = np.asarray(m.params["bias"])
-    m.conv("conv_offset", "conv_offset", bias=True)
+    if "conv_offset" in m.params:
+        m.conv("conv_offset", "conv_offset", bias=True)
 
 
 ZOO = {"stereonet": _stereonet, "psmnet": _psmnet, "nnet": _nnet, "dpnet": _dpnet, "bts": _bts,
-       "face_seg": _face_seg, "deform_conv2d": _deform_conv2d}
+       "face_seg": _face_seg, "deform_conv2d": _deform_conv, "deform_conv3d": _deform_conv}
 
 
 def state_dict_from_jax(params, batch_stats, block_stack: int = 1, model: str = "stereodpnet") -> dict[str, np.ndarray]:
@@ -369,7 +374,9 @@ def state_dict_from_jax(params, batch_stats, block_stack: int = 1, model: str = 
     JAX package's exporter emits, the reference torch names. The zoo
     models (`ZOO`): the port's names, which follow the JAX tree; "face_seg"
     (BiSeNet) the reference's names, "deform_conv2d" (`DeformConvPack2D`,
-    `batch_stats` unused) torch's."""
+    `batch_stats` unused) torch's, "deform_conv3d" (`DeformConv3D`,
+    `DeformConvPack3D`, `DeformConvPack3D_d`, `batch_stats` unused) the
+    reference's: `weight`, `bias`, `conv_offset.*`."""
     m = _Mapper(params, batch_stats)
     if model in ZOO:
         ZOO[model](m)

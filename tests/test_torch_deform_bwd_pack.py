@@ -8,14 +8,16 @@ operands must give the same gradients as the original ones, and every
 padded entry must be exactly zero, in the operands and in the gradients.
 Which kernel a call takes follows its dtype alone (`bwd_route`,
 `bwd_plan`); off the CPU a call launches that kernel or raises, whatever
-the dtype and aperture."""
+the dtype and aperture. Past the tuned widths the wide form's operands
+(x in whole 64-channel chunks, the rows' and the cotangent's columns in
+whole 64-wide N tiles) must give the same gradients too."""
 import numpy as np
 import pytest
 import torch
 
 from dualpixelface_tpu_torch.ops.kernels import launch_counts
 from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
-    CP_WIDTHS, KTAPS, bwd_plan, bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain, pack_deform_bwd,
+    CP_WIDTHS, KTAPS, bwd_plan, bwd_route, deform_conv3d_bwd, deform_conv3d_bwd_plain, layout, pack_deform_bwd,
     pack_deform_bwd_3xtf32)
 from torch_cpu_setup import two_threads
 
@@ -24,11 +26,11 @@ two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_s
 CINS = [3, 35, 40, 64]  # padded to 40, 40, 40 (as it is), 64 (as it is)
 
 
-def _operands(cin, seed=0, shape=(1, 3, 5, 4)):
+def _operands(cin, seed=0, shape=(1, 3, 5, 4), co=64):
     rng = np.random.default_rng(seed)
     arrays = [rng.standard_normal(shape + (cin,)), rng.standard_normal(shape + (81,)) * 1.5,
-              rng.standard_normal((3, 3, 3, cin, 64)) * 0.2, rng.standard_normal((64,)),
-              rng.standard_normal(shape + (64,))]
+              rng.standard_normal((3, 3, 3, cin, co)) * 0.2, rng.standard_normal((co,)),
+              rng.standard_normal(shape + (co,))]
     return [torch.from_numpy(a.astype(np.float32)) for a in arrays]
 
 
@@ -103,9 +105,36 @@ def test_route_follows_the_dtype(dtype, route):
     ((2, 4, 192, 144, 35), torch.float32, ("tensor_cores_3xtf32", 40, 39)),  # 64-voxel tiles
     ((1, 1, 2, 5, 35), torch.bfloat16, ("tensor_cores", 40, 1)),  # one tile: one share per tap
     ((3, 5, 1, 1, 64), torch.float32, ("tensor_cores_3xtf32", 64, 1)),
+    ((2, 4, 192, 144, 96), torch.bfloat16, ("tensor_cores", 128, 39)),  # the wide form: whole chunks
+    ((2, 4, 192, 144, 51), torch.float32, ("tensor_cores_3xtf32", 64, 39)),  # at Co 96 (below)
 ])
 def test_bwd_plan(shape, dtype, plan):
-    assert bwd_plan(shape, dtype, 132) == plan
+    assert bwd_plan(shape, dtype, 132, co=96 if shape[-1] == 51 else 64) == plan
+
+
+@pytest.mark.parametrize("aperture", [True, False])
+@pytest.mark.parametrize("cin,co", [(15, 24), (51, 96), (96, 96), (131, 16)])
+def test_wide_packed_operands_give_the_same_backward(cin, co, aperture):
+    """The wide form's operands: x padded to whole chunks, the rows
+    [27, CP, COP] (and their TF32 planes) with zero columns past Co, and
+    the cotangent padded with zero columns, through the plain backward,
+    give the original gradients; the padded channels get exactly zero."""
+    x, off, w, bias, g = _operands(cin, co=co)
+    wide, cp, cop = layout(cin, co)
+    assert wide and cp % 64 == 0 and cop % 64 == 0
+    xp, wpk = pack_deform_bwd(x, w)
+    xs, planes = pack_deform_bwd_3xtf32(x, w)
+    assert xp.shape[-1] == cp and wpk.shape == (KTAPS, cp, cop) and torch.equal(xs, xp)
+    assert planes.shape == (2, KTAPS, cp, cop) and not planes[:, :, cin:].any() and not planes[..., co:].any()
+    ref = deform_conv3d_bwd_plain(x, off, w, bias, g, aperture)
+    gp = torch.nn.functional.pad(g, (0, cop - co))
+    bias_p = torch.nn.functional.pad(bias, (0, cop - co))
+    for rows in (wpk, planes[0] + planes[1]):
+        got = deform_conv3d_bwd_plain(xp, off, _unpack(rows), bias_p, gp, aperture)
+        for name, a, r in zip(("gx", "goff", "gw", "gb"),
+                              (got[0][..., :cin], got[1], got[2][..., :cin, :co], got[3][:co]), ref):
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5 * float(r.abs().max()), msg=name)
+        assert not got[0][..., cin:].any() and not got[2][..., cin:, :].any()
 
 
 class _TensorOnCuda(torch.Tensor):

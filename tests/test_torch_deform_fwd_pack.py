@@ -10,15 +10,17 @@ tap's weight plane [Co, CP], K contiguous, split into TF32 hi and lo
 give exactly the unpacked output, and every padded entry must be exactly
 zero. Which kernel a call takes follows its dtype alone (`fwd_route`); off
 the CPU a call launches that kernel or raises, whatever the dtype and
-aperture, and more than CIN_MAX input channels raise before either."""
+aperture. Past the tuned widths (Cin <= CIN_TUNED at Co 64) the wide form
+pads x to whole 64-channel chunks and Co to whole 64-wide N tiles, and
+its packed operands too must give the unpacked output bit for bit."""
 import numpy as np
 import pytest
 import torch
 
 from dualpixelface_tpu_torch.ops.kernels import launch_counts
 from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
-    CIN_MAX, CP_WIDTHS, KTAPS, deform_conv3d_fused, deform_conv3d_plain, fwd_route, fwd_weight_rows,
-    pack_deform_bwd, pack_deform_fwd, pack_deform_fwd_3xtf32)
+    CHUNK, CIN_TUNED, CP_WIDTHS, KTAPS, deform_conv3d_fused, deform_conv3d_plain, fwd_route, fwd_weight_rows,
+    layout, pack_deform_bwd, pack_deform_fwd, pack_deform_fwd_3xtf32)
 from dualpixelface_tpu_torch.ops.kernels.split_f32 import split_planes
 from torch_cpu_setup import two_threads
 
@@ -27,7 +29,12 @@ two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_s
 CINS = [3, 35, 40, 64]  # padded to 40, 40, 40 (as it is), 64 (as it is); rows 48, 48, 48, 64
 
 
-def _operands(cin, seed=0, shape=(2, 3, 5, 4)):
+# the wide form's widths (Cin, Co): the ANM's at inplanes 12 and 48, and
+# chip_smoke.py's extremes
+WIDE = [(15, 24), (24, 24), (51, 96), (96, 96), (131, 16), (3, 128)]
+
+
+def _operands(cin, seed=0, shape=(2, 3, 5, 4), co=64):
     """Values on which every sum of the plain forward is exact in f32, in
     any order: x and the weight small integers, the offsets multiples of
     1/4 (so each corner weight is a multiple of 1/64) in [-6, 2.75], which
@@ -37,8 +44,8 @@ def _operands(cin, seed=0, shape=(2, 3, 5, 4)):
     rng = np.random.default_rng(seed)
     x = rng.integers(-3, 4, shape + (cin,))
     off = rng.integers(-24, 12, shape + (81,)) / 4.0
-    w = rng.integers(-2, 3, (3, 3, 3, cin, 64))
-    bias = rng.integers(-4, 5, (64,))
+    w = rng.integers(-2, 3, (3, 3, 3, cin, co))
+    bias = rng.integers(-4, 5, (co,))
     return [torch.from_numpy(np.asarray(a, np.float32)) for a in (x, off, w, bias)]
 
 
@@ -118,7 +125,7 @@ def test_split_planes_layout(cin):
     assert (cp * 4) % 16 == 0 and (xp.shape[-1] * 4) % 16 == 0
 
 
-@pytest.mark.parametrize("cin,rows", [(1, 48), (3, 48), (35, 48), (40, 48), (41, 64), (64, 64)])
+@pytest.mark.parametrize("cin,rows", [(1, 48), (3, 48), (35, 48), (40, 48), (41, 64), (64, 64), (65, 128), (131, 192)])
 def test_weight_rows_are_whole_k_steps(cin, rows):
     assert fwd_weight_rows(cin) == rows and rows % 16 == 0
 
@@ -158,14 +165,43 @@ def test_either_route_raises_instead_of_falling_back(dtype, aperture):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_more_than_cin_max_channels_raise(dtype):
-    """Either route takes at most CIN_MAX input channels: a CUDA call with
-    more raises before anything is packed or launched."""
-    x, off, w, bias = _operands(CIN_MAX + 1, shape=(1, 1, 2, 2))
+    """More than the tuned forms' CIN_TUNED input channels (and another Co)
+    are no longer refused for their width: a CUDA call gets past every
+    check of its operands and fails only where it needs CUDA, before
+    anything is packed, launched or counted."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the fake CUDA tensor could reach a kernel")
+    x, off, w, bias = _operands(CIN_TUNED + 1, shape=(1, 1, 2, 2), co=96)
     x, off, w, bias = (torch.Tensor._make_subclass(_TensorOnCuda, t.to(dtype)) for t in (x, off, w, bias))
     before = launch_counts()
-    with pytest.raises(ValueError, match=f"at most {CIN_MAX} input channels"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         deform_conv3d_fused(x, off, w, bias)
     assert launch_counts() == before
+
+
+@pytest.mark.parametrize("aperture", [True, False])
+@pytest.mark.parametrize("cin,co", WIDE)
+def test_wide_packed_operands_give_the_same_forward(cin, co, aperture):
+    """The wide form's operands, both routes': x padded to CP (whole
+    chunks), the bf16 rows [27, CP, COP] and the f32 hi plane transposed
+    back, through the plain forward, give the unpacked output bit for bit
+    in its first Co channels and exact zeros past them; every padded entry
+    is zero."""
+    x, off, w, bias = _operands(cin, co=co)
+    wide, cp, cop = layout(cin, co)
+    assert wide and cp % CHUNK == 0 and cp >= cin and cop % 64 == 0 and cop >= co
+    ref = deform_conv3d_plain(x, off, w, bias, aperture)
+    assert ref.abs().max() > 1.0
+    bias_p = torch.nn.functional.pad(bias, (0, cop - co))
+    xp, wpk = pack_deform_fwd(x, w)
+    assert xp.shape[-1] == cp and wpk.shape == (KTAPS, fwd_weight_rows(cin, co), cop) == (KTAPS, cp, cop)
+    assert not xp[..., cin:].any() and not wpk[:, cin:].any() and not wpk[:, :, co:].any()
+    got = deform_conv3d_plain(xp, off, wpk.reshape(3, 3, 3, cp, cop), bias_p, aperture)
+    assert torch.equal(got[..., :co], ref) and not got[..., co:].any()
+    xs, planes = pack_deform_fwd_3xtf32(x, w)
+    assert torch.equal(xs, xp) and planes.shape == (2, KTAPS, cop, cp) and not planes[1].any()
+    got = deform_conv3d_plain(xs, off, planes[0].transpose(1, 2).reshape(3, 3, 3, cp, cop), bias_p, aperture)
+    assert torch.equal(got[..., :co], ref)
 
 
 def test_split_tool_patches_the_kernel_source():

@@ -189,22 +189,26 @@ def test_wrappers_raise_instead_of_falling_back(make):
 
 @pytest.mark.parametrize("kernel", ["deform_conv3d_fused", "deform_conv3d_bwd", "conv3d_dslice", "conv3d_dslice_v2"])
 def test_wrappers_refuse_other_output_widths(kernel):
-    """K1, K2, K5 and T1 are built for their callers' output widths (64,
-    64, 81; 32 and 64): a CUDA call with another width raises before
-    anything is launched or counted, while the CPU path takes any width."""
+    """K5 and T1 are built for their callers' output widths (81; 32 and
+    64): a CUDA call with another width raises before anything is launched
+    or counted, while the CPU path takes any width. K1 and K2 take any
+    width, as their TPU kernels do (Co 5 here): what they still refuse
+    before any launch is a bias that is not [Co]."""
     x = torch.zeros(1, 2, 4, 4, 3)
     off = torch.zeros(1, 2, 4, 4, 81)
     w = torch.zeros(3, 3, 3, 3, 5)
     g = torch.zeros(1, 2, 4, 4, 5)
+    deform = kernel.startswith("deform")
+    bias = torch.zeros(4 if deform else 5)
     call = {
-        "deform_conv3d_fused": lambda x_, o_, w_, g_: deform_conv3d_fused(x_, o_, w_, None, aperture=True),
-        "deform_conv3d_bwd": lambda x_, o_, w_, g_: deform_conv3d_bwd(x_, o_, w_, None, g_, aperture=True)[2],
-        "conv3d_dslice": lambda x_, o_, w_, g_: conv3d_dslice(x_, w_, None),
-        "conv3d_dslice_v2": lambda x_, o_, w_, g_: conv3d_dslice_v2(x_, w_, None, relu=True),
+        "deform_conv3d_fused": lambda x_, o_, w_, g_, b_: deform_conv3d_fused(x_, o_, w_, b_, aperture=True),
+        "deform_conv3d_bwd": lambda x_, o_, w_, g_, b_: deform_conv3d_bwd(x_, o_, w_, b_, g_, aperture=True)[2],
+        "conv3d_dslice": lambda x_, o_, w_, g_, b_: conv3d_dslice(x_, w_, None),
+        "conv3d_dslice_v2": lambda x_, o_, w_, g_, b_: conv3d_dslice_v2(x_, w_, None, relu=True),
     }[kernel]
-    assert call(x, off, w, g).shape[-1] == 5
+    assert call(x, off, w, g, None if deform else bias).shape[-1] == 5
     before = launch_counts()
-    on_cuda = [torch.Tensor._make_subclass(_TensorOnCuda, t) for t in (x, off, w, g)]
-    with pytest.raises(ValueError, match="output channels"):
+    on_cuda = [torch.Tensor._make_subclass(_TensorOnCuda, t) for t in (x, off, w, g, bias)]
+    with pytest.raises(ValueError, match=r"bias \(4,\) must be \[5\]" if deform else "output channels"):
         call(*on_cuda)
     assert launch_counts() == before

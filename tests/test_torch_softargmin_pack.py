@@ -34,7 +34,7 @@ F32_TOL = 1e-4  # of max(1, max|plain|), chip_smoke.py REL_TOL["float32"]
 TINY = 2.0**-90  # csrc/fsam.cuh TINY
 
 
-@pytest.mark.parametrize("d", range(1, MAX_PLANES + 1))
+@pytest.mark.parametrize("d", [*range(1, MAX_PLANES + 1), 17, 24, 64])
 def test_static_d_taps_match_the_operator(d):
     """Each bin's first tap is the static lo plane, and its second, where
     its weight is not zero, the static hi plane; `d_bins` accepts them."""
@@ -136,7 +136,9 @@ def _shifted_logits(cost, dvals, exact):
 
 
 def _mirror_forward(cost, dvals):
-    logits, bins, _, _ = _shifted_logits(cost, dvals, exact=False)
+    """K3's arithmetic; past MAX_PLANES its wide form's, which shifts every
+    pixel by its largest bin."""
+    logits, bins, _, _ = _shifted_logits(cost, dvals, exact=cost.shape[1] > MAX_PLANES)
     e = torch.exp2(logits)
     return (e * bins[2, :, None, None]).sum(dim=1) / e.sum(dim=1)
 
@@ -194,9 +196,11 @@ def _float64_reference(cost, dvals):
     return (torch.softmax(up, dim=1) * torch.as_tensor(np.asarray(dvals)).reshape(1, -1, 1, 1)).sum(dim=1)
 
 
+# D 17, 24 and 64 are the wide forms' (the backward's mirror holds there
+# too: its largest bin, found among the candidates, is the largest of all)
 CASES = [((2, 8, 5, 6), False), ((1, 5, 7, 4), False), ((1, 8, 9, 7), True), ((1, 16, 3, 5), False),
-         ((2, 1, 6, 5), False)]
-CASE_IDS = ["D8", "D5", "D8-wide", "D16", "D1"]
+         ((2, 1, 6, 5), False), ((2, 17, 5, 6), False), ((1, 24, 6, 5), True), ((1, 64, 3, 4), False)]
+CASE_IDS = ["D8", "D5", "D8-wide", "D16", "D1", "D17", "D24-wide", "D64"]
 
 
 @pytest.mark.parametrize("shape,wide", CASES, ids=CASE_IDS)
@@ -274,13 +278,18 @@ class _TensorOnCuda(torch.Tensor):
 
 
 @pytest.mark.parametrize("kernel", ["K3", "K4"])
-@pytest.mark.parametrize("d,factor,match", [(17, 4, "at most 16"), (8, 2, "upsample by 4")])
+@pytest.mark.parametrize("d,factor,match", [(17, 4, "32-bit indexing"), (8, 2, "upsample by 4")])
 def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch, kernel, d, factor, match):
-    """With CUDA reported available, a call on a CUDA tensor with D > 16 or
-    another factor raises before anything is built, launched or counted."""
+    """With CUDA reported available, a call on a CUDA tensor with another
+    factor, or past the kernels' 32-bit indexing, raises before anything is
+    built, launched or counted. D = 17, past the compiled-tap kernels' 16
+    planes, is refused only for its size (2^24 batches, as meta tensors:
+    nothing allocated): the wide forms take any D."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cost = torch.Tensor._make_subclass(_TensorOnCuda, torch.zeros(1, d, 4, 4))
-    g = torch.Tensor._make_subclass(_TensorOnCuda, torch.zeros(1, 4 * factor, 4 * factor))
+    big = match == "32-bit indexing"
+    b, dev = (2**24, "meta") if big else (1, "cpu")
+    cost = torch.Tensor._make_subclass(_TensorOnCuda, torch.zeros(b, d, 4, 4, device=dev))
+    g = torch.Tensor._make_subclass(_TensorOnCuda, torch.zeros(b, 4 * factor, 4 * factor, device=dev))
     dv = np.linspace(-4, 12, factor * d)
     before = launch_counts()
     with pytest.raises(ValueError, match=match):

@@ -42,7 +42,8 @@ from dualpixelface_tpu_torch.weights import state_dict_from_jax
 
 REPO = Path(__file__).resolve().parent.parent
 RUN_CONFIG = {"stereonet": "train_faceDP_stereonet", "psmnet": "train_faceDP_psmnet", "nnet": "train_faceDP_nnet",
-              "dpnet": "train_faceDP_dpnet", "bts": "train_faceDP_bts"}
+              "dpnet": "train_faceDP_dpnet", "bts": "train_faceDP_bts",
+              "stereodpnet_plus": "train_synthetic_stereodpnet_plus"}  # tests/test_torch_widths.py's other widths
 HW = 64  # psmnet's and nnet's SPP pools at inplanes 8 (windows 16..2) fit its 16x16 features
 # dpnet's five heads land on the full resolution only for multiples of 96
 SIZE = {"dpnet": 96}
@@ -188,12 +189,13 @@ def _capture_grads():
     )
 
 
-def jax_step(model: str, over: dict, views_seed: int, seed: int = 13, adjust=None, run_over=None, extend=None):
+def jax_step(model: str, over: dict, views_seed: int, seed: int = 13, adjust=None, run_over=None, extend=None,
+             hw: int | None = None):
     """One JAX train step (f32, the run config's Adam) of batch 2 at the
-    model's size: (port option, weights before, batch, losses, {params,
-    batch_stats, grads} after). `run_over` overrides run keys; `extend(batch)`
-    gives keys to add to the batch."""
-    batch_np = views_batch(views_seed, hw=size_of(model))
+    model's size (or `hw`): (port option, weights before, batch, losses,
+    {params, batch_stats, grads} after). `run_over` overrides run keys;
+    `extend(batch)` gives keys to add to the batch."""
+    batch_np = views_batch(views_seed, hw=hw or size_of(model))
     if extend is not None:
         batch_np.update(extend(batch_np))
     jopt, popt, jm, init = seeded_model(model, over, batch_np, seed, adjust, run_over)
