@@ -176,6 +176,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and dilation 2 and at kernel (1, 3, 3) with padding (0, 1, 1) (the
      plain route), `DeformConv3D(dimension="HW")` (K1 and K2 at Co 32),
      `DeformConvPack3D_d(dimension="T")` at stride 2.
+  15. a reference checkpoint's eval through the CLI: 15a the committed
+     plateau checkpoint written in the reference's format (the port's
+     exporter, the reference-only buffers `costrange`, `grid` and a
+     `regression_layer` key, seeded BatchNorm counts), converted by the
+     CLI entry of `dualpixelface_tpu_torch.tools.convert_stereodpnet_checkpoint`
+     (`--config eval_synthetic_stereodpnet`, on the card), then evaluated by
+     the committed `eval_synthetic_stereodpnet` (f32 `stereodpnet`, test
+     mode, batch 4, `load_strict: true`) through the CLI with
+     `--load_model` on SyntheticDP at 768x576 (8 test samples: 2 batches):
+     rc 0, a finite test record; the same checkpoint through `Trainer.test`
+     in this process, launches per forward K1 2, K5 2, the rest 0, its
+     record equal to the CLI's within REFERENCE_RECORD_RTOL (a1-a3, shares
+     of pixels, within RECORD_PIXEL_FLIPS pixels); the checkpoint
+     exported back (`export_stereodpnet_checkpoint`) equal to the `.pt` and
+     to the reference payload, tensor for tensor; 15b
+     `metrics.affine_dp.metrics_torch` on the card on 15a's f32 outputs and
+     on the bf16 `stereodpnet_plus` serving forward of the same batch, each
+     against the same function on CPU copies (METRICS_TOL), the f32 case
+     also against the numpy pack (NUMPY_METRICS_TOL), the bf16 one with its
+     tie share printed; ms per batch of the card's twin and of the numpy
+     pack.
 The kernel checks (phases 3-4d, 9 and 14d) run with TF32 off for cuDNN and CUDA
 matmuls, scoped: every other phase runs at the port's own setting, which
 an f32 Trainer or Predictor applies (`ops.precision.exact_f32`), and
@@ -193,6 +214,8 @@ K1-K5 the train path's run of phase 7, `launches_serving` phase 5's,
 per rank on the one card, fit and test, every row; K1-K5 `launches_zoo`
 phase 12's per model (the five), 12a and 12b; `launches_last_modules`
 phase 13's (13a, 13c, 13d), all 0; `launches_wide` phase 14a's and 14b's;
+`launches_reference_eval` phase 15a's in-process eval, every row (K1 and K5
+4 each, the rest 0);
 K1-K4 a `wide_route` object: phase 4d's times per dtype beside their
 bounds (bf16 as the row's, f32 with the contractions as 3xTF32); K1, K2
 and K5 also an `f32_route`
@@ -2565,6 +2588,273 @@ def wide_phase(torch, card, phase) -> dict:
     return {"serving": serving, "train": train}
 
 
+# phase 15: a reference-format checkpoint evaluated through the CLI. The
+# committed f32 eval config (`stereodpnet`: exact attention, unbounded
+# deform, unfused regression; test mode, batch 4) on SyntheticDP at the
+# reference's 768x576, which config_test's centre crop (ratio 1, factor 96)
+# keeps whole; 8 test samples, 2 eval batches. Nothing else is cut.
+REFERENCE_EVAL_CONFIG = "eval_synthetic_stereodpnet"
+REFERENCE_EVAL_DATA = {"height": H, "width": W, "test_samples": 8}
+REFERENCE_EVAL_LAUNCHES = {"K1": 2, "K5": 2}  # per eval forward; K2-K4 none
+# the reference's buffers the port has no place for, written into the
+# reference-format checkpoint so the converter has to leave them out
+REFERENCE_ONLY = ("cost_volume.costrange", "normal_estimator.grid", "regression_layer.disp_values")
+# the CLI's test record against the in-process `Trainer.test`'s: another
+# process may take other cuDNN algorithms (sums in another order). The
+# continuous entries within REFERENCE_RECORD_RTOL (they differed by 4e-8 at
+# most on an H100 80GB HBM3 at 700 W); absolute_dp's a1-a3 are shares of
+# masked pixels under a threshold, where one pixel that rounds across it
+# moves the share by 1 / (batches x its batch's masked pixels), 7.4e-7 or
+# 6.3e-6 of a1 there (one pixel flipped in a run of phase 15 alone). A
+# relative depth noise d flips the pixels whose ratio lies within d of a
+# threshold: with 0.12 of the ratios in [1, 1.01), about 24 d of the
+# 1.35 M masked pixels, ~30 for d = 1e-6. Held to RECORD_PIXEL_FLIPS such
+# pixels, 4.7e-5 of a share; a fault moves a share by 1e-3 and more.
+REFERENCE_RECORD_RTOL = 1e-5
+RECORD_SHARES = ("absolute_dp/a1", "absolute_dp/a2", "absolute_dp/a3")
+RECORD_PIXEL_FLIPS = 64
+# 15b: `metrics_torch` on the card against the same function on CPU copies
+# (float32 sums of 442,368 pixels a sample in another order: the largest
+# difference, WMAE's after 5 IRLS steps, was 2.3e-5 of its value, the
+# others below 2e-7 (H100 80GB HBM3, 700 W), so 1e-4 of each value and 1e-6
+# absolute), and the f32 case against the numpy pack at
+# tests/test_affine_dp_jax.py's tolerance
+METRICS_TOL = {"rtol": 1e-4, "atol": 1e-6}
+NUMPY_METRICS_TOL = {"rtol": 2e-3, "atol": 2e-4}
+
+
+def reference_checkpoint(torch, path: Path) -> dict:
+    """Write the committed plateau checkpoint in the reference's format
+    (`weights.state_dict_from_jax`, then the port's exporter), with the
+    reference-only buffers and seeded BatchNorm counts added, as
+    {"state_dict": ...} to `path`; returns that state_dict."""
+    import numpy as np
+
+    from dualpixelface_tpu_torch.tools.export_stereodpnet_checkpoint import export_stereodpnet_state_dict
+    from dualpixelface_tpu_torch.weights import read_flax_msgpack, state_dict_from_jax
+
+    tree = read_flax_msgpack(ROOT / "tests" / "data" / "serving_plateau_192.msgpack")
+    sd = {k: torch.from_numpy(np.array(v))
+          for k, v in export_stereodpnet_state_dict(state_dict_from_jax(tree["params"], tree["batch_stats"])).items()}
+    gen = torch.Generator().manual_seed(15)
+    for k in sd:
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.randint(1, 10**6, (), generator=gen)
+    sd.update({k: torch.randn(8, generator=gen) for k in REFERENCE_ONLY})
+    torch.save({"state_dict": sd}, path)
+    return sd
+
+
+def capture_first_eval(trainer, box: dict) -> None:
+    """Wrap the eval step `trainer.init_state` makes so that its first
+    call's device batch and results land in `box`, and each call's count
+    of masked pixels in `box["masked"]`."""
+    init_state = trainer.init_state
+
+    def init_and_wrap(steps_per_epoch):
+        state = init_state(steps_per_epoch)
+        step = trainer.eval_step
+
+        def recorded(state, batch):
+            results = step(state, batch)
+            if "batch" not in box:
+                box.update(batch=batch, results=results)
+            box.setdefault("masked", []).append((batch["mask"] > 0).sum())
+            return results
+
+        trainer.eval_step = recorded
+        return state
+
+    trainer.init_state = init_and_wrap
+
+
+def reference_eval(torch, card: str, tmp: Path) -> dict:
+    """Phase 15a: a reference-format checkpoint (`reference_checkpoint`)
+    converted by the converter's CLI entry
+    (`tools.convert_stereodpnet_checkpoint.main` with the arguments of
+    `python -m ... <ckpt> <out.pt> --config <config>`, on the card, its
+    default), then
+    evaluated through the CLI (`run_cli`, test mode, `--load_model`, the
+    config's `load_strict: true`) on a copy of the config whose dataset is
+    REFERENCE_EVAL_DATA; the same checkpoint in this process through
+    `Trainer.test` with the launch counts set to 0 just before and read
+    just after (per forward K1 2, K5 2, the rest 0), its test record
+    equal to the CLI's within REFERENCE_RECORD_RTOL (a1-a3 within
+    RECORD_PIXEL_FLIPS pixels); then the checkpoint
+    exported back (`export_stereodpnet_checkpoint`) must equal the `.pt`
+    and the reference payload, tensor for tensor, but for the
+    reference-only buffers. Returns the launch counts, the first eval
+    batch and its results (on the card) for 15b."""
+    from dualpixelface_tpu_torch.config import Configuration
+    from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualpixelface_tpu_torch.tools import convert_stereodpnet_checkpoint, export_stereodpnet_checkpoint
+    from dualpixelface_tpu_torch.train.checkpoint import load_checkpoint
+    from dualpixelface_tpu_torch.train.trainer import Trainer
+
+    reference = reference_checkpoint(torch, tmp / "reference.ckpt")
+    data = json.loads((ROOT / "dualpixelface_tpu_torch" / "data" / "SyntheticDP" / "config.json").read_text())
+    (tmp / "synthetic.json").write_text(json.dumps({**data, **REFERENCE_EVAL_DATA}))
+    run = json.loads((ROOT / "configs" / f"{REFERENCE_EVAL_CONFIG}.json").read_text())
+    if run["mode"] != "test" or run["load_strict"] is not True or run["precision"] != 32:
+        fail(f"phase 15a: {REFERENCE_EVAL_CONFIG} is committed as test mode, load_strict, f32; it reads {run}")
+    (tmp / "configs").mkdir()
+    config = tmp / "configs" / f"{REFERENCE_EVAL_CONFIG}.json"
+    config.write_text(json.dumps({**run, "dataset_config": str(tmp / "synthetic")}))
+
+    converted = tmp / "converted.pt"
+    t0 = time.perf_counter()
+    # the CLI's own entry in this process (a subprocess would add ~10 s of
+    # start-up; tests/test_torch_reference_checkpoint.py runs `python -m`)
+    convert_stereodpnet_checkpoint.main([str(tmp / "reference.ckpt"), str(converted), "--config", str(config)])
+    convert_s = time.perf_counter() - t0
+    if not converted.is_file():
+        fail(f"phase 15a: the converter wrote no {converted}")
+    cli = run_cli("15a", str(config), run["model_name"], "chip_smoke_reference", run["batch_size"], None, card,
+                  load_model=str(converted))
+
+    trainer = Trainer(Configuration(str(config), "phase15", load_model=str(converted), root=tmp).get_config())
+    box: dict = {}
+    capture_first_eval(trainer, box)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = trainer.test()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    launches = launch_counts()
+    batches = -(-REFERENCE_EVAL_DATA["test_samples"] // run["batch_size"])
+    want = {**dict.fromkeys(launches, 0), **{k: n * batches for k, n in REFERENCE_EVAL_LAUNCHES.items()}}
+    print(f"reference eval launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        fail(f"phase 15a: launch counts {launches} != {want}: the eval did not run through every kernel")
+    res = box["results"]
+    check_results(torch, res, run["batch_size"], H, W, bins=4 * trainer.opt.model.level)
+    if res["pred_depth"].dtype != torch.float32:
+        fail(f"phase 15a: the f32 eval returned {res['pred_depth'].dtype}")
+
+    record = {f"{m}/{k}": v for m, d in agg.items() for k, v in d.items()}
+    cli_record = {k: v for k, v in cli["test_record"].items() if k != "mode"}
+    share_tol = RECORD_PIXEL_FLIPS / (batches * min(int(m) for m in box["masked"]))
+    if set(record) != set(cli_record):
+        fail(f"phase 15a: the in-process record's keys {sorted(record)} are not the CLI's {sorted(cli_record)}")
+
+    def over_tol(k, a, b):
+        """|a - b| over its tolerance (both NaN: 0; one NaN: inf)."""
+        if math.isnan(a) or math.isnan(b):
+            return 0.0 if math.isnan(a) and math.isnan(b) else math.inf
+        tol = share_tol if k in RECORD_SHARES else REFERENCE_RECORD_RTOL * max(abs(a), abs(b), 1e-12)
+        return abs(a - b) / tol
+
+    diffs = {k: over_tol(k, v, cli_record[k]) for k, v in record.items()}
+    worst = max(diffs, key=diffs.get)
+    print(f"in-process Trainer.test vs the CLI's test record: largest diff over its tolerance {diffs[worst]:.3f} "
+          f"({worst}; rel {REFERENCE_RECORD_RTOL:g}, shares {share_tol:.3e}) over {len(diffs)} entries", flush=True)
+    if not diffs[worst] <= 1.0:
+        fail(f"phase 15a: the in-process record {record} differs from the CLI's {cli_record}")
+
+    back = tmp / "back.ckpt"
+    export_stereodpnet_checkpoint.main([str(converted), str(back)])
+    exported = torch.load(back, map_location="cpu")["state_dict"]
+    model_sd = load_checkpoint(converted)["model"]
+    if set(exported) != set(model_sd) or set(exported) != set(reference) - set(REFERENCE_ONLY):
+        fail("phase 15a: the export's keys differ from the .pt's or from the reference payload's")
+    unequal = [k for k, v in exported.items()
+               if not (torch.equal(v, model_sd[k].cpu()) and torch.equal(v, reference[k]))]
+    if unequal:
+        fail(f"phase 15a: the export differs from the .pt or the reference payload at {unequal[:10]}")
+    summary = {"config": REFERENCE_EVAL_CONFIG, "hw": [H, W], "batch": run["batch_size"], "batches": batches,
+               "convert_s": convert_s, "cli_s": cli["cli_s"], "test_s": test_s, "launches": launches,
+               "record_diff_over_tol": diffs, "exported_tensors": len(exported), "card": card}
+    print(json.dumps({"reference_eval": summary}), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "batch": box["batch"], "results": res, "state_dict": reference}
+
+
+def tie_share(torch, x) -> float:
+    """The share of the entries of each row of x [B, ...] whose value
+    another entry of the row shares, averaged over the rows."""
+    rows = x.reshape(x.shape[0], -1)
+    return sum(1.0 - torch.unique(r).numel() / r.numel() for r in rows) / rows.shape[0]
+
+
+def metrics_on_card(torch, card: str, ref: dict) -> dict:
+    """Phase 15b: `metrics.affine_dp.metrics_torch` on the card on 15a's
+    f32 eval outputs (pred_depth against the batch's disparity and mask, as
+    the benchmark measures), and on the bf16 `stereodpnet_plus` serving
+    forward (phase 5's path: K1, K3, K5) of the same batch with the same
+    weights: each against the same function on CPU copies within
+    METRICS_TOL; the f32 case also against the numpy pack within
+    NUMPY_METRICS_TOL (the bf16 case, full of ties that the numpy pack's
+    unstable sort breaks in its own order, prints its tie share and its
+    difference instead). Then ms per batch of the card's twin (CUDA
+    events) and of the host's numpy pack on host arrays."""
+    from dualpixelface_tpu_torch.config import load_config
+    from dualpixelface_tpu_torch.metrics.affine_dp import metrics, metrics_torch
+    from dualpixelface_tpu_torch.serve import Predictor
+    from dualpixelface_tpu_torch.tools import cuda_ms
+
+    batch = ref["batch"]
+    disp, mask = batch["disp"], batch["mask"]
+    cases = {"float32": ref["results"]["pred_depth"][:, 0]}
+    # the reference payload's weights, without the buffers the port has no place for
+    sd = {k: v for k, v in ref["state_dict"].items() if k not in REFERENCE_ONLY}
+    serving = Predictor(load_config("stereodpnet_plus"), state_dict=sd, device="cuda", dtype=torch.bfloat16)
+    out = serving({k: batch[k] for k in ("left", "right", "K", "abvalue")})
+    cases["bfloat16"] = out["pred_depth"][:, 0]
+    del serving, out
+    rows = {}
+    for dname, pred in cases.items():
+        if pred.device.type != "cuda" or str(pred.dtype) != f"torch.{dname}" or tuple(pred.shape) != tuple(disp.shape):
+            fail(f"phase 15b: the {dname} prediction is {pred.dtype} {tuple(pred.shape)} on {pred.device}")
+        got = metrics_torch(pred, disp, mask)
+        if got.device.type != "cuda":
+            fail("phase 15b: metrics_torch left the card")
+        host = metrics_torch(pred.cpu(), disp.cpu(), mask.cpu())
+        got_h = got.cpu()
+        diff = (got_h - host).abs()
+        ok = bool(torch.isfinite(got_h).all()) and bool((diff <= METRICS_TOL["atol"] + METRICS_TOL["rtol"] * host.abs()).all())
+        pred_np, disp_np, mask_np = pred.float().cpu().numpy(), disp.cpu().numpy(), mask.cpu().numpy()
+        numpy_vals = metrics(pred_np, disp_np, mask_np)
+        numpy_diff = [abs(a - b) for a, b in zip(got_h.tolist(), numpy_vals)]
+        card_ms = cuda_ms(lambda: metrics_torch(pred, disp, mask), iters=5)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            metrics(pred_np, disp_np, mask_np)
+        numpy_ms = (time.perf_counter() - t0) / 2 * 1e3
+        rows[dname] = {"card": got_h.tolist(), "cpu": host.tolist(), "card_vs_cpu_abs": diff.tolist(),
+                       "numpy": numpy_vals, "card_vs_numpy_abs": numpy_diff,
+                       "pred_tie_share": tie_share(torch, pred), "disp_tie_share": tie_share(torch, disp),
+                       "card_ms": card_ms, "numpy_ms": numpy_ms}
+        print(f"metrics_torch {dname}: card {got_h.tolist()} vs CPU {host.tolist()}: abs diff {diff.tolist()} "
+              f"(tol {METRICS_TOL}); numpy pack {numpy_vals}, abs diff {numpy_diff}; ties: pred "
+              f"{rows[dname]['pred_tie_share']:.4f}, disp {rows[dname]['disp_tie_share']:.4f}; "
+              f"card {card_ms:.3f} ms, numpy {numpy_ms:.1f} ms a batch of {pred.shape[0]}", flush=True)
+        if not ok:
+            fail(f"phase 15b: metrics_torch on the card differs from the CPU on the {dname} outputs")
+        if dname == "float32" and not all(
+                d <= NUMPY_METRICS_TOL["atol"] + NUMPY_METRICS_TOL["rtol"] * abs(v) for d, v in zip(numpy_diff, numpy_vals)):
+            fail("phase 15b: metrics_torch on the card differs from the numpy pack on the f32 outputs")
+    print(json.dumps({"metrics_on_card": {**rows, "shape": list(disp.shape), "card": card}}), flush=True)
+    return rows
+
+
+def reference_eval_phase(torch, card: str, phase) -> dict:
+    """Phase 15 (a, b) in a directory of its own under build/, removed
+    after. Returns 15a's launch counts."""
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase15_", dir=ROOT / "build"))
+    try:
+        ref = phase("15a", reference_eval, torch, card, tmp)
+        phase("15b", metrics_on_card, torch, card, ref)
+        return ref["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2626,6 +2916,7 @@ def main() -> int:
     launches_zoo = zoo_phase(torch, card, phase)
     launches_last = last_modules_phase(torch, card, phase)
     launches_wide = wide_phase(torch, card, phase)
+    launches_reference = reference_eval_phase(torch, card, phase)
     print(json.dumps({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t0}), flush=True)
     k5, t1 = timing["K5"], tools["T1"]
     chain_ms = sum(r["chain_ms"] for r in t1["runs"])
@@ -2655,6 +2946,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],
             "launches_wide": {p: c[k] for p, c in launches_wide.items()},
+            "launches_reference_eval": launches_reference[k],
         })
         if k != "K5":
             # phase 4d's widened routes: bf16 priced as above, f32 with the
@@ -2688,7 +2980,7 @@ def main() -> int:
             "source": f"dualpixelface_tpu_torch/csrc/{SOURCES[k]}", "replaces": TPU_SITES[k],
             "launches": row["launches"], "launches_trainer": launches_trainer[k],
             "launches_ddp": [r["launches"][k] for r in launches_ddp], "launches_last_modules": launches_last[k],
-            "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "launches_reference_eval": launches_reference[k], "max_abs_err": row["err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": "operations" if 2 * row["bound_ops_ms"] >= row["bound_ms"] else "bytes",
             "library_ms": row["library_ms"], "runs": len(row["runs"]),

@@ -1,7 +1,9 @@
 """Affine-invariant dual-pixel metrics: WMAE, WRMSE, 1-Spearman
-(counterpart of `dualpixelface_tpu/metrics/affine_dp.py`, in numpy on the
-host as the JAX pack's `metrics`; its on-device `metrics_jax` twin has no
-counterpart; a bf16 prediction is widened to float32 first).
+(counterpart of `dualpixelface_tpu/metrics/affine_dp.py`). `metrics` runs
+in numpy on the host, as the JAX pack's does, and the benchmark measures
+with it; `metrics_torch` is the counterpart of its on-device twin
+`metrics_jax`, in float32 on the inputs' device, which the benchmark does
+not call (as in JAX). A bf16 prediction is widened to float32 first.
 
 Parity target: the Google dual_pixels metrics the reference runs through a
 TensorFlow 2.3 detour (ref src/metric/affine_dp/metric.py:22-151,
@@ -21,10 +23,11 @@ Per-sample optional center-crop, averaged over the batch (metric.py:104-151).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from dualpixelface_tpu_torch.metrics import register_metric
 from dualpixelface_tpu_torch.metrics.base import Benchmark
-from dualpixelface_tpu_torch.ops.geometry import inverse_depth
+from dualpixelface_tpu_torch.ops.geometry import _wls_affine, inverse_depth
 from dualpixelface_tpu_torch.utils import tensor2numpy
 
 
@@ -117,6 +120,56 @@ def metrics(prediction: np.ndarray, gt_depth: np.ndarray, gt_depth_conf: np.ndar
     wrmse = affine_inv_wrmse(p, d, c)
     spearman = 1.0 - spearman_rank_correlation(p, d, c)
     return [float(wmae.mean()), float(wrmse.mean()), float(spearman.mean())]
+
+
+def _ranks(z: torch.Tensor) -> torch.Tensor:
+    """Each entry's rank along the last axis, ties in index order: the
+    double argsort of `jnp.argsort`, which is stable. An unstable sort
+    breaks ties in any order, and on a prediction with ties (a bf16 one is
+    full of them) that moves 1-Spearman by ~4e-3."""
+    return torch.argsort(torch.argsort(z, dim=-1, stable=True), dim=-1, stable=True)
+
+
+def _pearson_torch(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted Pearson correlation per row of [B, N] -> [B]."""
+    ws = w.sum(-1)
+    e = lambda z: (w * z).sum(-1) / ws
+    mx, my = e(x), e(y)
+    cov = e(x * y) - mx * my
+    return cov / torch.sqrt((e(x * x) - mx**2) * (e(y * y) - my**2))
+
+
+def metrics_torch(prediction: torch.Tensor, gt_depth: torch.Tensor, gt_depth_conf: torch.Tensor,
+                  irls_iters: int = 5, epsilon: float = 1e-3) -> torch.Tensor:
+    """[B, H, W] tensors -> float32 [wmae, wrmse, 1-spearman] averaged over
+    the batch, on the inputs' device (counterpart of `metrics_jax`): each
+    sample in float32, batched over B; the affine fits by `_wls_affine`'s
+    2x2 normal equations with a 1e-8 ridge; WMAE by `irls_iters` IRLS
+    steps reweighted by 1 / max(epsilon, |r|); WRMSE by one fit; Spearman
+    by stable double-argsort ranks rescaled by (r - n//2) / (n//2), the max
+    over the prediction's sign. No host sync: the result stays a tensor."""
+    b = prediction.shape[0]
+    p = prediction.reshape(b, -1).float()
+    d = gt_depth.reshape(b, -1).float()
+    c = gt_depth_conf.reshape(b, -1).float()
+
+    w = torch.ones_like(c)
+    resid = torch.zeros_like(c)
+    for _ in range(irls_iters):
+        s, t = _wls_affine(p, d, c * w)
+        resid = (p * s[:, None] + t[:, None] - d).abs()
+        w = 1.0 / resid.clamp_min(epsilon)
+    wmae = (c * resid).sum(-1) / c.sum(-1)
+
+    s, t = _wls_affine(p, d, c)
+    resid_sq = ((p * s[:, None] + t[:, None] - d) ** 2).clamp_max(torch.finfo(torch.float32).max)
+    wrmse = torch.sqrt((c * resid_sq).sum(-1) / c.sum(-1))
+
+    half = p.shape[1] // 2
+    resc = lambda r: (r - half).float() / float(half)
+    xr, xrn, yr = resc(_ranks(p)), resc(_ranks(-p)), resc(_ranks(d))
+    rho = torch.maximum(_pearson_torch(xr, yr, c), _pearson_torch(xrn, yr, c))
+    return torch.stack([wmae, wrmse, 1.0 - rho], dim=-1).mean(0)
 
 
 @register_metric("affine_dp")

@@ -45,14 +45,19 @@ def _param_names(model) -> list[str]:
     return [name for name, _ in model.named_parameters()]
 
 
+def checkpoint_payload(state, epoch: int) -> dict:
+    """What a checkpoint file holds (`_KEYS`) for `state` at `epoch`."""
+    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+            "param_names": _param_names(state.model), "step": int(state.step), "epoch": int(epoch)}
+
+
 def save_checkpoint(ckpt_dir: str, state, epoch: int) -> str:
     """Write `checkpoint_<epoch>.pt`: rank 0 alone writes (every rank holds
     the same state), then all ranks meet at a barrier, so each finds the
     file afterwards."""
     path = (Path(ckpt_dir) / checkpoint_name(epoch)).absolute()
     if parallel.world().main:
-        torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                    "param_names": _param_names(state.model), "step": int(state.step), "epoch": int(epoch)}, path)
+        torch.save(checkpoint_payload(state, epoch), path)
     parallel.barrier()
     return str(path)
 

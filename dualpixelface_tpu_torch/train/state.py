@@ -48,3 +48,10 @@ def create_train_state(option, steps_per_epoch: int, state_dict=None, device="cu
     optimizer, schedule = optimizer_selector(option, list(model.parameters()), steps_per_epoch)
     return TrainState(model=model, optimizer=optimizer, schedule=schedule)
 
+
+
+def param_count(state: TrainState) -> int:
+    """The number of the model's parameters, as the JAX package counts its
+    params tree (BatchNorm statistics and other buffers left out; a module
+    registered under two names, the ASM's InstanceNorm, counted once)."""
+    return sum(p.numel() for p in state.model.parameters())

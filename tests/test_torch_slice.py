@@ -156,7 +156,8 @@ def test_port_imports_no_jax():
     packs, the config manager, the loaders and preprocessing, the trainer,
     its checkpoints, the CLI, `parallel/` and the zoo's stereonet, psmnet,
     nnet, dpnet and BTS with its encoders and silog, the folded loss and its
-    grid sampling, the face parser and the 2-D deformable conv among them)
+    grid sampling, the face parser, the 2-D deformable conv and the
+    reference-checkpoint converter and exporter among them)
     leaves jax, flax, the JAX package and `tools/` out of sys.modules."""
     code = (
         "import pkgutil, sys, dualpixelface_tpu_torch as p\n"
@@ -172,7 +173,7 @@ def test_port_imports_no_jax():
         "    'parallel.mesh', 'models.stereonet.mainmodel', 'models.psmnet.mainmodel', 'models.nnet.mainmodel',\n"
         "    'models.dpnet.mainmodel', 'models.bts.mainmodel', 'models.bts.encoder', 'losses.silog',\n"
         "    'ops.resample', 'losses.folded', 'models.face_seg', 'models.face_seg.model', 'models.face_seg.evaluate',\n"
-        "    'ops.deform_conv2d')}\n"
+        "    'ops.deform_conv2d', 'tools.convert_stereodpnet_checkpoint', 'tools.export_stereodpnet_checkpoint')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names))\n"
     )

@@ -9,12 +9,14 @@ the JAX package's: K1 and K2 at Cin 15, 96 and 131 and Co 24 and 96
 against the TPU kernels `deform_conv3d_fused` and `deform_conv3d_fused_bwd`
 in interpret mode (as tests/test_deform_gather_pallas.py runs them) and
 against `_windowed_xla` and packed8 with their vjps; K3 and K4 at D 24
-against JAX `fused_softargmin` and its gradient; and the whole model at
-`inplanes` 12, `level` 20 (its deform convs 15 -> 24 and 24 -> 24, 80
-bins): the eval forward and one f32 train step against JAX's, on weights
-refilled from a seed (`torch_zoo`), and the normal module alone at those
-widths in train mode, forward and gradients. Everything is float32; each
-tolerance says why it is what it is.
+against JAX `fused_softargmin` and its gradient; and the whole model's
+eval forward at `inplanes` 12, `level` 20 (its deform convs 15 -> 24 and
+24 -> 24, 80 bins) against JAX's, on weights refilled from a seed
+(`torch_zoo`). The same model's f32 train step is
+tests/test_torch_widths_train.py's, the normal module alone at those
+widths tests/test_torch_widths_anm.py's (files of their own, so that
+pytest-xdist's `--dist loadfile` runs them on workers of their own).
+Everything is float32; each tolerance says why it is what it is.
 """
 import jax
 import jax.numpy as jnp
@@ -23,8 +25,6 @@ import pytest
 import torch
 
 import torch_zoo as zoo
-from __graft_entry__ import _tiny_batch
-from dualpixelface_tpu.models.stereodpnet import normal_module as jax_nm
 from dualpixelface_tpu.ops.cost_volume import regression_disparities
 from dualpixelface_tpu.ops.deform_conv3d import _windowed_xla
 from dualpixelface_tpu.ops.deform_conv3d import deform_conv3d as jax_deform_conv3d
@@ -33,11 +33,8 @@ from dualpixelface_tpu.ops.kernels.deform_fused import deform_conv3d_fused_bwd a
 from dualpixelface_tpu.ops.kernels.fused_softargmin import fused_softargmin as jax_fused_softargmin
 from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
     deform_conv3d_bwd, deform_conv3d_bwd_plain, deform_conv3d_fused, deform_conv3d_plain, layout)
-from dualpixelface_tpu_torch.config import load_config
-from dualpixelface_tpu_torch.models.stereodpnet.normal_module import ANM
 from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import (
     MAX_PLANES, fused_softargmin, fused_softargmin_bwd, fused_softargmin_plain)
-from dualpixelface_tpu_torch.weights import _Mapper, load_state_dict
 from torch_cpu_setup import two_threads
 
 two_threads()  # MKL's vector math warmed on one thread first (tests/torch_cpu_setup.py)
@@ -124,7 +121,6 @@ def test_k3_k4_plain_match_jax_at_24_planes(b, d, h, w):
 
 MODEL = "stereodpnet_plus"
 OVER = {"inplanes": 12, "level": 20}
-ZERO_GRAD = ("normal_estimator.deform_conv1.bias", "normal_estimator.deform_conv2.bias")
 
 
 def _noisy_offsets(variables, popt):
@@ -147,132 +143,3 @@ def test_stereodpnet_plus_eval_at_inplanes_12_level_20_matches_jax():
     hw = zoo.size_of(MODEL)
     zoo.check_eval(ref, got, {"pred_depth": (2, 1, hw, hw), "pred_normal": (2, 1, hw, hw, 3),
                               "ref_feature": (2, hw // 4, hw // 4), "prob_depth": None})
-
-
-# The train step's point: 32x32 (the committed configuration's step tests'
-# size), views seed 8 and the eval test's weights with the PReLU slopes
-# drawn from U(0.85, 0.95) and the offset heads' biases 0.5 N(0, 1),
-# kernels as filled (`_conditioned`). A random-weight step has kinks (the
-# ANM's ReLUs and LeakyReLUs, the PReLUs, the deform samples' cell edges)
-# whose inputs can lie within f32's rounding of their switch points; there
-# the f32 gradient is only as good as the step's conditioning, in either
-# package. At 64x64, views seed 2, JAX's f32 gradients lay up to 1.5% from
-# the port's f64 ones, the port's f32 ones 1.9%, and a 2^-20 relative change
-# of the left view moved JAX's own f32 gradients by 1.6%: JAX and the port
-# differed by 2.1%, rounding, not a fault of the new widths. Of the 32x32
-# views seeds 1-8 tried in order, 8 is the first where the two packages
-# agree to 1e-3: the largest per-parameter difference 1.95e-4 (the port on
-# 1, 2 and 4 threads alike), JAX's f32 gradients within 1.3e-4 and the
-# port's within 2.2e-4 of the port's f64 ones. GRAD_TOL is twice that
-# largest difference. The losses, the batch statistics and the Adam update
-# are held as tightly as in the other step tests, and the normal module's
-# own step, on fixed inputs, at 1e-4 (the next test).
-STEP_HW = 32
-VIEWS_SEED = 8
-GRAD_TOL = 4e-4
-
-
-def _conditioned(variables, popt):
-    rng = np.random.default_rng(31)
-
-    def leaf(path, x):
-        if jax.tree_util.keystr(path).endswith("['alpha']"):
-            return rng.uniform(0.85, 0.95, np.shape(x)).astype(np.float32)
-        return x
-
-    params = jax.tree_util.tree_map_with_path(leaf, variables["params"])
-    for i in (1, 2):
-        off = params["normal_estimator"][f"deform_conv{i}"]["conv_offset"]
-        off["bias"] = (0.5 * rng.standard_normal(off["bias"].shape)).astype(np.float32)
-    return {"params": params, "batch_stats": variables["batch_stats"]}
-
-
-def test_stereodpnet_plus_train_step_at_inplanes_12_level_20_matches_jax():
-    """One f32 train step (batch 2, 32x32, Adam) against JAX's at the point
-    above: the losses within 1e-4 relative; every BatchNorm's running
-    statistics (`torch_zoo.check_batch_stats`); every parameter's update
-    within `torch_zoo.update_errors`' bound; every gradient within GRAD_TOL
-    of its norm, the two deform-conv biases whose exact gradient is zero
-    within 1e-6 of their conv weight's gradient norm."""
-    jstep = zoo.jax_step(MODEL, OVER, VIEWS_SEED, adjust=_conditioned, hw=STEP_HW)
-    popt, init, batch_np, ref_losses, _ = jstep
-    pstep = zoo.port_step(MODEL, popt, init, batch_np)
-    assert set(pstep[1]) == set(ref_losses) == {"smoothL1_loss", "cosine_loss", "final_loss"}
-    for key, v in ref_losses.items():
-        assert pstep[1][key] == pytest.approx(v, rel=1e-4), key
-    assert zoo.check_batch_stats(MODEL, jstep, pstep) > 0
-    bad = {k: v for k, v in zoo.update_errors(MODEL, jstep, pstep, ZERO_GRAD).items() if not v <= 1.0}
-    assert not bad, bad
-    errs = zoo.gradient_errors(MODEL, jstep, pstep, ZERO_GRAD)
-    bad = {k: v for k, v in errs.items() if not v <= (1e-6 if k in ZERO_GRAD else GRAD_TOL)}
-    assert not bad, sorted(bad.items(), key=lambda kv: -kv[1])[:10]
-
-
-def test_normal_module_at_inplanes_12_level_20_trains_as_jax():
-    """The ANM alone in train mode (batch statistics) at `inplanes` 12 and
-    `level` 20, on a fixed cost volume and disparity map (so both packages
-    sample the same 4 of the 20 planes): its deform convs 15 -> 24 and
-    24 -> 24 with offset heads seeded past the +-3 window, windowed
-    ('pallas', D = 4). The normals, the offsets and, for a seeded
-    cotangent of the normals, the gradients of the cost volume and of every
-    parameter within 1e-4 of each one's largest entry (f32 through two
-    deform convs, two BatchNorms and a 6-layer dilated stack, sums in
-    another order), the two deform biases, whose exact gradient is zero
-    (each feeds a batch-statistics BatchNorm), within 1e-6 of their weight's
-    gradient norm; the BatchNorms' running statistics within 1e-4."""
-    hw = 64
-    over = dict(OVER, deform_impl="pallas")
-    c = over["inplanes"]
-    cfg = zoo.JaxConfiguration("train_synthetic_stereodpnet_plus", make_workspace=False)
-    cfg.data["model"].update(over)
-    opt = cfg.get_config()
-    rng = np.random.default_rng(41)
-    cost = rng.standard_normal((1, over["level"], hw // 4, hw // 4, c)).astype(np.float32)
-    disp = rng.uniform(-4, 12, (1, hw, hw)).astype(np.float32)
-    batch = {k: v for k, v in _tiny_batch(1, hw, hw).items() if k in ("K", "abvalue")}
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    jm = jax_nm.ANM(opt, opt.model.mindisp, opt.model.maxdisp)
-    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), [jnp.asarray(cost)], [jnp.asarray(disp)], jbatch,
-                                            False))
-    variables = zoo.fill(shapes, rng)
-    for i in (1, 2):  # offsets of a few voxels; larger ones leave most samples outside the
-        # volume, the deform outputs near-constant and the train-mode BatchNorms ill-conditioned
-        variables["params"][f"deform_conv{i}"]["conv_offset"]["kernel"] *= 1.5
-    cot = rng.standard_normal((1, hw, hw, 3)).astype(np.float32)
-
-    def loss(params, cost_):
-        (normals, offs1, offs2), mut = jm.apply({"params": params, "batch_stats": variables["batch_stats"]},
-                                               [cost_], [jnp.asarray(disp)], jbatch, True, mutable=["batch_stats"])
-        return jnp.sum(normals[0] * cot), (normals[0], offs1[0], offs2[0], mut["batch_stats"])
-
-    (_, (normal, off1, off2, stats)), (gparams, gcost) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
-        jax.tree_util.tree_map(jnp.asarray, variables["params"]), jnp.asarray(cost))
-
-    def port_sd(params, batch_stats):
-        m = _Mapper({"anm": params}, {"anm": batch_stats})
-        m.anm("anm", "anm")
-        return {k.removeprefix("anm."): v for k, v in m.sd.items()}
-
-    pt = ANM(load_config("stereodpnet_plus", model_overrides=over), opt.model.mindisp, opt.model.maxdisp)
-    load_state_dict(pt, port_sd(variables["params"], variables["batch_stats"])).train()
-    assert tuple(pt.deform_conv1.weight.shape[:2]) == (24, 15) and tuple(pt.deform_conv2.weight.shape[:2]) == (24, 24)
-    tcost = torch.movedim(torch.from_numpy(cost), -1, 1).requires_grad_(True)
-    got, got1, got2 = pt(tcost, torch.from_numpy(disp), {k: torch.from_numpy(v) for k, v in batch.items()})
-    got.backward(torch.from_numpy(cot))
-    assert float(np.abs(np.asarray(off1)).max()) > 3.0
-    for name, a, r in (("normal", got, normal), ("offset1", got1, off1), ("offset2", got2, off2),
-                       ("cost", torch.movedim(tcost.grad, 1, -1), gcost)):
-        r = np.asarray(r)
-        np.testing.assert_allclose(a.detach().numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max(), err_msg=name)
-    ref = port_sd(jax.tree_util.tree_map(np.asarray, gparams), variables["batch_stats"])
-    for name, p in pt.named_parameters():
-        if "normal_estimator." + name in ZERO_GRAD:  # both packages' rounding: held to the weight's norm
-            scale = float(np.linalg.norm(ref[name.replace(".bias", ".weight")]))
-            assert max(np.linalg.norm(p.grad.numpy()), np.linalg.norm(ref[name])) <= 1e-6 * scale, name
-            continue
-        np.testing.assert_allclose(p.grad.numpy(), ref[name], rtol=0, atol=1e-4 * np.abs(ref[name]).max(),
-                                   err_msg=name)
-    ref_stats = port_sd(variables["params"], jax.tree_util.tree_map(np.asarray, stats))
-    for name, buf in pt.named_buffers():
-        if name.endswith(("running_mean", "running_var")):
-            np.testing.assert_allclose(buf.numpy(), ref_stats[name], rtol=1e-4, atol=1e-6, err_msg=name)
