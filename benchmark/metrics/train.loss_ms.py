@@ -1,0 +1,6 @@
+"""Device ms a train step of the losses: between the step's own marks, on
+every step of the window, their mean."""
+
+
+def read(r):
+    return r.span_ms("loss")
