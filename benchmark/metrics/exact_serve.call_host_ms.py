@@ -1,0 +1,22 @@
+"""Host ms a request batch spends in the program's `serve.call` span (the
+whole `serve.Predictor.__call__`, its issue of every kernel and its waits),
+over the window's calls: beside the call's latency, how far the host paces
+it.
+
+Importing this file turns the program's tracer on (`utils/profiling`'s
+`enable()`, annotations off, so the profiler slice holds no range of the
+program's); the harness imports a traced run's readers before its window
+and never in an untraced run (`benchmark/run.py`, `measure`). Spans are
+not timed while the slice's profiler records. Where the program has no
+tracer, or the run no such span or counter, it reads None."""
+from dualpixelface_tpu_torch.utils import profiling
+
+if hasattr(profiling, "enable"):
+    profiling.enable()
+
+
+def read(r):
+    spans = profiling.snapshot()["spans"] if hasattr(profiling, "snapshot") else {}
+    calls = spans.get("serve.call", {}).get("calls")
+    value = spans.get("serve.call", {}).get("host_ms")
+    return value / calls if calls and value is not None else None

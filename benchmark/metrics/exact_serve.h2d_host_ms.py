@@ -1,0 +1,21 @@
+"""Host ms a request batch spends in the program's `serve.h2d` span (the
+Predictor's cast and copy of the request's host arrays, pageable copies
+that block the host), over the window's calls.
+
+Importing this file turns the program's tracer on (`utils/profiling`'s
+`enable()`, annotations off, so the profiler slice holds no range of the
+program's); the harness imports a traced run's readers before its window
+and never in an untraced run (`benchmark/run.py`, `measure`). Spans are
+not timed while the slice's profiler records. Where the program has no
+tracer, or the run no such span or counter, it reads None."""
+from dualpixelface_tpu_torch.utils import profiling
+
+if hasattr(profiling, "enable"):
+    profiling.enable()
+
+
+def read(r):
+    spans = profiling.snapshot()["spans"] if hasattr(profiling, "snapshot") else {}
+    calls = spans.get("serve.call", {}).get("calls")
+    value = spans.get("serve.h2d", {}).get("host_ms")
+    return value / calls if calls and value is not None else None

@@ -7,6 +7,7 @@ import torch
 
 from dualpixelface_tpu_torch import parallel
 from dualpixelface_tpu_torch.ops import geometry
+from dualpixelface_tpu_torch.utils.profiling import to_device
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor | None, eps: float = 1e-8) -> torch.Tensor:
@@ -39,7 +40,7 @@ def global_masked_means(xs: list[torch.Tensor], mask: torch.Tensor | None, eps: 
         return [masked_mean(x, mask, eps) for x in xs]
     m = None if mask is None else mask.to(xs[0].dtype)
     sums = parallel.all_reduce_sum(torch.stack([(x if m is None else x * m).sum() for x in xs]))
-    count = parallel.global_count(xs[0].new_tensor(float(xs[0].numel())) if m is None else m.sum())
+    count = parallel.global_count(to_device(float(xs[0].numel()), xs[0].device, xs[0].dtype) if m is None else m.sum())
     return list((sums / torch.clamp_min(count, eps)).unbind())
 
 
@@ -54,7 +55,7 @@ def loss_weights(option, num_pred: int, dtype=torch.float32, device=None) -> tor
     `option.model.loss_weight`, one per head."""
     if num_pred == 1:
         return torch.ones((1,), dtype=dtype, device=device)
-    w = torch.as_tensor(list(option.model.loss_weight), dtype=dtype, device=device)
+    w = to_device(list(option.model.loss_weight), device, dtype)
     if w.shape[0] != num_pred:
         raise ValueError(f"loss_weight has {w.shape[0]} entries for {num_pred} predictions")
     return w

@@ -9,9 +9,20 @@
 run config's `mode` picks what runs: `train` trains (`Trainer.fit`) and
 then tests, anything else (`test`, `demo`) tests. `--load_model` restores a
 checkpoint of this package (`checkpoint_<epoch>.pt`) before the first
-forward; `--profile` wraps the run in a torch.profiler trace written to the
-workspace's log directory. The run goes to the card unless `--device cpu`
-is given; without a card the default raises.
+forward. The run goes to the card unless `--device cpu` is given; without
+a card the default raises.
+
+`--profile` wraps the run in a torch.profiler trace written to the
+workspace's log directory (a Chrome trace TensorBoard reads) and turns the
+program's tracer on with annotations (`utils/profiling`): the trace then
+holds the program's spans as host ranges beside the kernels they launched
+(`serve.*`, `model.*` for each stage of StereoDPNet's forward, `asm.*` for
+the ASM's shift, mask head and gate, `train.*` for a step's copy, forward,
+losses, backward and update, and `fit.data`, the wait for the next batch,
+beside `fit.step`). After the run, `tracer.json` in the same directory holds
+the tracer's counters: the host-to-device copies (`h2d.*`), each kernel's
+launches (`launch.*`) and the kernel builds and loads (`kernels.*`), and
+how often each span was entered.
 
 Data parallelism (`parallel`): under `torchrun` (RANK and WORLD_SIZE set)
 each process is one rank of the process group it describes, on its node's
@@ -37,7 +48,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--workspace", type=str, required=True, help="workspace name")
     parser.add_argument("--load_model", type=str, default=None, help="checkpoint to load")
     parser.add_argument("--profile", action="store_true",
-                        help="wrap the run in a torch.profiler trace (written to the workspace log dir)")
+                        help="wrap the run in a torch.profiler trace with the program's spans, and write "
+                             "the tracer's counters to tracer.json (both in the workspace log dir)")
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                         help="where the model runs (default: the card)")
     return parser.parse_args(argv)
@@ -62,7 +74,7 @@ def run(args: argparse.Namespace) -> None:
     from dualpixelface_tpu_torch import parallel, resolve_device
     from dualpixelface_tpu_torch.config import Configuration
     from dualpixelface_tpu_torch.train.trainer import Trainer
-    from dualpixelface_tpu_torch.utils.profiling import trace
+    from dualpixelface_tpu_torch.utils import profiling
 
     device = resolve_device(args.device)  # raises before any workspace is made
     configuration = Configuration(args.config, args.workspace, args.load_model)
@@ -76,12 +88,17 @@ def run(args: argparse.Namespace) -> None:
 
     trainer = Trainer(opt, device=device)
     logdir = opt.get("logger_path") if args.profile and parallel.world().main else None
-    with trace(logdir):
+    if logdir is not None:
+        profiling.enable(annotate=True)
+    with profiling.trace(logdir):
         if opt.mode == "train":
             trainer.fit()
             trainer.test()
         else:
             trainer.test()
+    if logdir is not None:
+        profiling.write(os.path.join(logdir, "tracer.json"))
+        profiling.disable()
 
 
 def main(argv=None):

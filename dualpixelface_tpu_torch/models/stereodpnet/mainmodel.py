@@ -13,6 +13,9 @@ prob_depth [B, n, 4*level, H, W] or None under the fused regression;
 pred_normal [B, 1, H, W, 3]; ref_feature [B, H/4, W/4]; with
 `model.return_offsets` set, also anm_offset1 and anm_offset2 [B, D, h, w, 81]
 (the ANM deform convs' offsets, after the clamp when `deform_offset_clamp`).
+Each stage runs inside a tracer span (`utils/profiling`):
+`model.feature_extraction`, `model.cost_volume`, `model.aggregation`,
+`model.regression` (the heads' soft-argmin) and `model.normal_estimator`.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from dualpixelface_tpu_torch.models.stereodpnet.normal_module import ANM
 from dualpixelface_tpu_torch.ops.aggregation import PSMNetHGAggregation
 from dualpixelface_tpu_torch.ops.cost_volume import regression_disparities, soft_argmin
 from dualpixelface_tpu_torch.ops.kernels.fused_softargmin import fused_softargmin
+from dualpixelface_tpu_torch.utils.profiling import span
 
 
 @register_model("stereodpnet")
@@ -45,23 +49,28 @@ class STEREODPNET(nn.Module):
         ref_img, tar_img = select_ref_target(batch, self.option)
         b = ref_img.shape[0]
         both = torch.movedim(torch.cat([ref_img, tar_img], dim=0), -1, 1)  # [2B, 3, H, W]
-        both_fea = self.feature_extraction(both)  # [2B, C, H/4, W/4]
+        with span("model.feature_extraction"):
+            both_fea = self.feature_extraction(both)  # [2B, C, H/4, W/4]
         ref_fea, tar_fea = both_fea[:b], both_fea[b:]
-        cost = self.cost_volume(ref_fea, tar_fea)  # [B, 2C, D, H/4, W/4]
-        cost_logits, cost_feats = self.aggregation(cost)
+        with span("model.cost_volume"):
+            cost = self.cost_volume(ref_fea, tar_fea)  # [B, 2C, D, H/4, W/4]
+        with span("model.aggregation"):
+            cost_logits, cost_feats = self.aggregation(cost)
 
         disps, probs = [], []
-        for logits in cost_logits:
-            if self.fused:
-                disps.append(fused_softargmin(logits, self.disparities, factor=4))
-            else:
-                disp, prob = soft_argmin(logits, self.disparities)
-                disps.append(disp)
-                probs.append(prob)
+        with span("model.regression"):
+            for logits in cost_logits:
+                if self.fused:
+                    disps.append(fused_softargmin(logits, self.disparities, factor=4))
+                else:
+                    disp, prob = soft_argmin(logits, self.disparities)
+                    disps.append(disp)
+                    probs.append(prob)
 
         normal = off1 = off2 = None
         if self.normal_estimator is not None:
-            normal, off1, off2 = self.normal_estimator(cost_feats[0], disps[0], batch)
+            with span("model.normal_estimator"):
+                normal, off1, off2 = self.normal_estimator(cost_feats[0], disps[0], batch)
         results = {
             "pred_depth": torch.stack(disps, dim=1),
             "prob_depth": torch.stack(probs, dim=1) if probs else None,

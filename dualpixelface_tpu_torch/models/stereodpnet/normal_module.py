@@ -24,6 +24,7 @@ from dualpixelface_tpu_torch.ops.blocks import BatchNorm3d, ConvBN3D, LeakyReLU
 from dualpixelface_tpu_torch.ops.cost_volume import costrange as make_costrange
 from dualpixelface_tpu_torch.ops.deform_conv3d import DeformConvPack3D
 from dualpixelface_tpu_torch.ops.resize import downsample2d_nearest, resize_linear
+from dualpixelface_tpu_torch.utils.profiling import to_device
 
 
 @functools.lru_cache(maxsize=16)
@@ -31,7 +32,7 @@ from dualpixelface_tpu_torch.ops.resize import downsample2d_nearest, resize_line
 def _device_planes(values: tuple, device) -> torch.Tensor:
     """The plane values as f32 on the device, copied once (a per-call host
     copy would drain the stream). Callers only read them."""
-    return torch.as_tensor(np.asarray(values, np.float32), device=device)
+    return to_device(np.asarray(values, np.float32), device)
 
 
 def _gather_planes(cost, cr, idx):

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dualpixelface_tpu_torch.ops.blocks import BatchNorm2d, InstanceNorm, PReLU
+from dualpixelface_tpu_torch.utils.profiling import span, to_device
 
 
 def shift_h_static(x: torch.Tensor, k: int, axis: int = 1) -> torch.Tensor:
@@ -70,14 +71,14 @@ def shift_h_nearest_compat(x: torch.Tensor, delta: float, axis: int = 1) -> torc
     h, w = x.shape[axis], x.shape[axis + 1]
     idx_h, ok_h = _compat_nearest_index(h, delta)
     idx_w, ok_w = _compat_nearest_index(w, 0.0)
-    out = torch.index_select(x, axis, torch.as_tensor(idx_h, device=x.device))
-    out = torch.index_select(out, axis + 1, torch.as_tensor(idx_w, device=x.device))
+    out = torch.index_select(x, axis, to_device(idx_h, x.device))
+    out = torch.index_select(out, axis + 1, to_device(idx_w, x.device))
     shape_h = [1] * x.ndim
     shape_h[axis] = h
     shape_w = [1] * x.ndim
     shape_w[axis + 1] = w
-    mask = (torch.as_tensor(ok_h, dtype=x.dtype, device=x.device).reshape(shape_h)
-            * torch.as_tensor(ok_w, dtype=x.dtype, device=x.device).reshape(shape_w))
+    mask = (to_device(ok_h, x.device, x.dtype).reshape(shape_h)
+            * to_device(ok_w, x.device, x.dtype).reshape(shape_w))
     return out * mask
 
 
@@ -110,7 +111,7 @@ def _phase_operator(h: int, deltas: tuple, device: torch.device, dtype: torch.dt
     """The operator on the device, built once per shape: the JAX package
     folds it at trace time; rebuilt per call it cost the host ~0.25 s at
     H = 192 (profile_serving.py). Callers only read it."""
-    return torch.as_tensor(phase_shift_matrix(h, deltas), device=device).to(dtype)
+    return to_device(phase_shift_matrix(h, deltas), device).to(dtype)
 
 
 def phase_shift_multi(x: torch.Tensor, deltas: Sequence[float], axis: int = 1) -> torch.Tensor:
@@ -165,7 +166,10 @@ class MaskingAttention(nn.Module):
     over all of them (the set of the JAX package's batch-folded call:
     samples, planes, modes and pixels of one call), one update per call.
     `forward_fast` is the `fast_attention` deviation: the head runs once on
-    the unshifted map and the shifts are applied to its output.
+    the unshifted map and the shifts are applied to its output. Both run
+    their parts inside tracer spans (`utils/profiling`): `asm.shift` around
+    each `shift_fn` call, `asm.mask_head` around the mask head's convs and
+    BatchNorm, `asm.gate` around `_gate`.
 
     The attribute tree is the reference torch module's: `mask_convs` =
     (conv, bn, relu, (conv, norm)) with `normalize` the same norm module
@@ -222,21 +226,28 @@ class MaskingAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, shift_fn) -> torch.Tensor:
         conv0, bn, _, tail = self.mask_convs
-        y_modes = shift_fn(x)  # M x [B, C, D, H, W]
+        with span("asm.shift"):
+            y_modes = shift_fn(x)  # M x [B, C, D, H, W]
         m = len(y_modes)
         b, c, d, h, w = y_modes[0].shape
-        folded = torch.cat(y_modes, dim=0)  # [M*B, C, D, H, W]
-        mask = F.conv3d(folded, conv0.weight, padding=(0, 1, 1))
-        # BatchNorm over every (mode, sample, plane, pixel): D*H folded into
-        # one axis of the 4-D layout the module takes
-        mask = torch.relu(bn(mask.reshape(m * b, -1, d * h, w))).reshape(m * b, -1, d, h, w)
-        mask_modes = list(F.conv3d(mask, tail[0].weight).chunk(m, dim=0))
-        return self._gate(y_modes, mask_modes)
+        with span("asm.mask_head"):
+            folded = torch.cat(y_modes, dim=0)  # [M*B, C, D, H, W]
+            mask = F.conv3d(folded, conv0.weight, padding=(0, 1, 1))
+            # BatchNorm over every (mode, sample, plane, pixel): D*H folded into
+            # one axis of the 4-D layout the module takes
+            mask = torch.relu(bn(mask.reshape(m * b, -1, d * h, w))).reshape(m * b, -1, d, h, w)
+            mask_modes = list(F.conv3d(mask, tail[0].weight).chunk(m, dim=0))
+        with span("asm.gate"):
+            return self._gate(y_modes, mask_modes)
 
     def forward_fast(self, x: torch.Tensor, shift_fn) -> torch.Tensor:
         conv0, bn, _, tail = self.mask_convs
-        mask = F.conv2d(x, conv0.weight[:, :, 0], padding=1)
-        mask = F.conv2d(torch.relu(bn(mask)), tail[0].weight[:, :, 0])
-        y_modes = shift_fn(x)        # M x [B, C, D, H, W]
-        mask_modes = shift_fn(mask)  # M x [B, F, D, H, W]
-        return self._gate(y_modes, mask_modes)
+        with span("asm.mask_head"):
+            mask = F.conv2d(x, conv0.weight[:, :, 0], padding=1)
+            mask = F.conv2d(torch.relu(bn(mask)), tail[0].weight[:, :, 0])
+        with span("asm.shift"):
+            y_modes = shift_fn(x)        # M x [B, C, D, H, W]
+        with span("asm.shift"):
+            mask_modes = shift_fn(mask)  # M x [B, F, D, H, W]
+        with span("asm.gate"):
+            return self._gate(y_modes, mask_modes)

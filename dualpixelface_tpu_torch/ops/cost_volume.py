@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from dualpixelface_tpu_torch.ops.asm import shift_h_static
+from dualpixelface_tpu_torch.utils.profiling import to_device
 
 
 def costrange(mindisp: float, maxdisp: float, level: int) -> np.ndarray:
@@ -43,7 +44,7 @@ def row_valid_mask(h: int, disp: int, dtype=torch.float32, device="cpu") -> torc
         rows[h - disp:] = 0.0
     elif disp < 0:
         rows[:-disp] = 0.0
-    return torch.as_tensor(rows, device=device).to(dtype)
+    return to_device(rows, device).to(dtype)
 
 
 def _planes(ref: torch.Tensor, tar: torch.Tensor, disps: Sequence[float], plane) -> torch.Tensor:
@@ -88,6 +89,6 @@ def soft_argmin(cost: torch.Tensor, disparities) -> tuple[torch.Tensor, torch.Te
     c32 = cost.float()
     prob = torch.exp(c32 - torch.amax(cost, dim=1, keepdim=True).float())
     prob = prob / prob.sum(dim=1, keepdim=True)
-    dvec = torch.as_tensor(np.asarray(disparities, np.float32), device=cost.device).reshape(1, -1, 1, 1)
+    dvec = to_device(np.asarray(disparities, np.float32), cost.device).reshape(1, -1, 1, 1)
     disp = (prob * dvec).sum(dim=1)
     return disp.to(cost.dtype), prob.to(cost.dtype)

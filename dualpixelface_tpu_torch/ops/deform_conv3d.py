@@ -47,6 +47,7 @@ from torch import nn
 from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import conv3d_dslice
 from dualpixelface_tpu_torch.ops.kernels.deform_fused import (
     AP, EPS, KTAPS, clamp_positions, deform_conv3d_fused, sample_cols)
+from dualpixelface_tpu_torch.utils.profiling import to_device
 
 IMPLS = ("simple", "packed", "packed8", "pallas")
 
@@ -212,7 +213,7 @@ def _window_bounds(device, dtype):
     big = np.float32(1e9)
     lo = np.stack([-big * np.ones(KTAPS), -AP - base_h, -AP - base_w], -1).reshape(3 * KTAPS)
     hi = np.stack([big * np.ones(KTAPS), AP + 1 - EPS - base_h, AP + 1 - EPS - base_w], -1).reshape(3 * KTAPS)
-    return tuple(torch.as_tensor(a, device=device).to(dtype) for a in (lo, hi))
+    return tuple(to_device(a, device).to(dtype) for a in (lo, hi))
 
 
 class _DeformBase(nn.Module):

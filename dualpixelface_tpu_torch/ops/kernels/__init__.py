@@ -1,15 +1,16 @@
 """Hand-written CUDA kernels for Hopper, one per TPU Pallas kernel of the
 JAX package: K1-K5 on the serving and train paths, T1-T4 behind the tools
 (`dualpixelface_tpu_torch/tools/`). Each module holds the wrappers (kernel
-for CUDA tensors, plain PyTorch version for CPU tensors), the plain
-versions and the launch counters; the CUDA sources are in
-`dualpixelface_tpu_torch/csrc/`."""
+for CUDA tensors, plain PyTorch version for CPU tensors) and the plain
+versions; the CUDA sources are in `dualpixelface_tpu_torch/csrc/`. Each
+launch counts on the tracer's `launch.<id>` counter (`utils/profiling`),
+which `launch_counts` reads."""
 from dualpixelface_tpu_torch.ops.kernels import conv3d_dslice, conv3d_dslice_v2, deform_fused, fused_softargmin, prims
+from dualpixelface_tpu_torch.utils import profiling
 
 
 def kernel_wrappers() -> dict:
-    """The wrapper of each kernel by its id (K1-K5, T1-T4), each carrying
-    its `launches` count."""
+    """The wrapper of each kernel by its id (K1-K5, T1-T4)."""
     return {
         "K1": deform_fused.deform_conv3d_fused,
         "K2": deform_fused.deform_conv3d_bwd,
@@ -24,9 +25,10 @@ def kernel_wrappers() -> dict:
 
 
 def launch_counts() -> dict:
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    """Launches of each kernel by its id since the last reset."""
+    counts = profiling.counters()
+    return {k: counts.get(f"launch.{k}", 0) for k in kernel_wrappers()}
 
 
 def reset_launch_counts() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    profiling.reset_counters("launch.")

@@ -9,6 +9,8 @@ package runs from one (a `pyproject.toml` beside the package), and
 `~/.cache/dualpixelface_tpu_torch/torch_kernels/` for an installed copy.
 `build()` starts one nvcc per missing library, all at once, and waits for
 them; `load()` builds what it needs on first use. Nothing is compiled or loaded at import time.
+Each nvcc run counts on the tracer's `kernels.build` counter, each library
+loaded on `kernels.load` (`utils/profiling`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from dualpixelface_tpu_torch.utils.profiling import count
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
@@ -84,6 +88,7 @@ def build(names=KERNELS) -> dict[str, dict]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        count("kernels.build")
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
     failed = []
@@ -108,6 +113,7 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build((name,))
         lib = ctypes.CDLL(str(path))
+        count("kernels.load")
         _loaded[name] = lib
     return lib
 

@@ -17,7 +17,7 @@ TF32 planes [2, N_PAD, Kp]).
 `conv3d_dslice` takes the plain PyTorch version for tensors on the CPU and
 the kernel for CUDA tensors, either dtype; anything else raises, as does a
 CUDA call with other than CO output channels (the one width the kernel is
-built for). `conv3d_dslice.launches` counts kernel launches.
+built for). Each launch counts on the tracer's `launch.K5` counter.
 
 The gradient is not a kernel, as in the JAX package, whose custom VJP
 differentiates the XLA reference (`conv3d_dslice.py:217-227`): it is the
@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from dualpixelface_tpu_torch.ops.kernels import _build, split_f32
+from dualpixelface_tpu_torch.utils.profiling import count
 
 CO = 81  # the kernel's output channels: the deform offset heads' 3 x 27, its only caller
 N_PAD = 88  # CO padded to eleven n8 tiles: the tensor-core kernel's N
@@ -133,9 +134,6 @@ def conv3d_dslice(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | No
     return _Conv3dDslice.apply(x, weight, bias)
 
 
-conv3d_dslice.launches = 0
-
-
 def _forward(x, weight, bias):
     if x.device.type == "cpu":
         return conv3d_dslice_plain(x, weight, bias)
@@ -155,6 +153,6 @@ def _forward(x, weight, bias):
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
             b, d, h, w, x.shape[-1], co, int(bf16), _build.current_stream(x.device))
-    conv3d_dslice.launches += 1
+    count("launch.K5")
     _build.check_launch(rc, "conv3d_dslice")
     return out

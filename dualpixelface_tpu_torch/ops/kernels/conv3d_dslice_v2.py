@@ -27,8 +27,8 @@ affine's gradients in f32, and gx, gw from the library's conv3d backward
 
 `conv3d_dslice_v2` takes the plain PyTorch version for tensors on the CPU
 and the kernel for CUDA tensors; anything else raises, as does a CUDA call
-with other than 32 or 64 output channels. `conv3d_dslice_v2.launches`
-counts kernel launches.
+with other than 32 or 64 output channels. Each launch counts on the
+tracer's `launch.T1` counter.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from dualpixelface_tpu_torch.ops.kernels import _build, split_f32
+from dualpixelface_tpu_torch.utils.profiling import count
 from dualpixelface_tpu_torch.ops.kernels.conv3d_dslice import (
     conv3d_dslice_bwd, conv3d_f32, pack_conv3d, pack_conv3d_3xtf32)
 
@@ -118,9 +119,6 @@ def conv3d_dslice_v2(x: torch.Tensor, wmat: torch.Tensor, ab: torch.Tensor | Non
     return _Conv3dDsliceV2.apply(x, wmat, ab, bool(relu))
 
 
-conv3d_dslice_v2.launches = 0
-
-
 def _forward(x, wmat, ab, relu):
     if x.device.type == "cpu":
         return conv3d_dslice_v2_plain(x, wmat, ab, relu)
@@ -140,6 +138,6 @@ def _forward(x, wmat, ab, relu):
     out = torch.empty((b, d, h, w, co), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), wmat.data_ptr(), None if ab is None else ab.data_ptr(), out.data_ptr(),
             b, d, h, w, x.shape[-1], co, int(relu), int(bf16), _build.current_stream(x.device))
-    conv3d_dslice_v2.launches += 1
+    count("launch.T1")
     _build.check_launch(rc, "conv3d_dslice_v2")
     return out

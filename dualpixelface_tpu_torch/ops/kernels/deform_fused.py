@@ -36,8 +36,7 @@ saved inputs, as the JAX custom VJP does, through `deform_conv3d_bwd`.
 Each wrapper takes the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; anything else raises, as does a CUDA call with a
 bias that is not [Co] or a volume past the kernels' 32-bit indexing.
-`deform_conv3d_fused.launches` and `deform_conv3d_bwd.launches` count
-kernel launches.
+Each launch counts on the tracer's `launch.K1` or `launch.K2` counter.
 """
 from __future__ import annotations
 
@@ -47,6 +46,7 @@ import math
 import torch
 
 from dualpixelface_tpu_torch.ops.kernels import _build, split_f32
+from dualpixelface_tpu_torch.utils.profiling import count
 
 AP = 3               # aperture: +-AP voxels around the output voxel (H, W)
 EPS = 1.0 / 1024.0
@@ -280,7 +280,7 @@ def _forward(x, offset, weight, bias, aperture):
         fn = _build.entry("deform_conv3d", symbol, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         rc = fn(xp.data_ptr(), offset.data_ptr(), wpk.data_ptr(), None if bias is None else bias.data_ptr(),
                 out.data_ptr(), b, d, h, w, c, cp, CO, int(bool(aperture)), _build.current_stream(x.device))
-    deform_conv3d_fused.launches += 1
+    count("launch.K1")
     _build.check_launch(rc, "deform_conv3d_fused")
     return out if cop == co else out[..., :co].contiguous()
 
@@ -307,9 +307,6 @@ def deform_conv3d_fused(x, offset, weight, bias=None, aperture=True):
     or an error."""
     _check_inputs("deform_conv3d_fused", x, offset, weight)
     return _DeformConv3d.apply(x, offset, weight, bias, bool(aperture))
-
-
-deform_conv3d_fused.launches = 0
 
 
 def deform_conv3d_bwd(x, offset, weight, bias, g, aperture=True):
@@ -351,10 +348,7 @@ def deform_conv3d_bwd(x, offset, weight, bias, g, aperture=True):
         rc = fn(xp.data_ptr(), offset.data_ptr(), wpk.data_ptr(), g.data_ptr(), gx32.data_ptr(), gx.data_ptr(),
                 goff.data_ptr(), gwp.data_ptr(), gw.data_ptr(), b, d, h, w, c, cp, CO, nsplit, int(bool(aperture)),
                 _build.current_stream(dev))
-    deform_conv3d_bwd.launches += 1
+    count("launch.K2")
     _build.check_launch(rc, "deform_conv3d_bwd")
     gb = None if bias is None else g.sum(dim=(0, 1, 2, 3), dtype=f32).to(bias.dtype)
     return gx, goff, gw, gb
-
-
-deform_conv3d_bwd.launches = 0

@@ -19,8 +19,8 @@ per shape.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; anything else raises. `fused_softargmin` is
-differentiable through `fused_softargmin_bwd`. `fused_softargmin.launches`
-and `fused_softargmin_bwd.launches` count kernel launches.
+differentiable through `fused_softargmin_bwd`. Each launch counts on the
+tracer's `launch.K3` or `launch.K4` counter.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import torch
 from dualpixelface_tpu_torch.ops.cost_volume import soft_argmin
 from dualpixelface_tpu_torch.ops.kernels import _build
 from dualpixelface_tpu_torch.ops.resize import _linear_matrix
+from dualpixelface_tpu_torch.utils.profiling import count, to_device
 
 FACTOR = 4  # the kernels' upsampling factor (csrc/fsam.cuh FACTOR)
 MAX_PLANES = 16  # coarse D the compiled-tap kernels hold per pixel (csrc/fsam.cuh MAXD); above, the wide forms
@@ -137,7 +138,7 @@ class _Plan:
         idx, wt = _two_taps(FACTOR * h, h)
         self.bins = d_bins(d, dvals)
         wide = d > MAX_PLANES
-        self.tensors = [torch.as_tensor(a, device=device) for a in
+        self.tensors = [to_device(a, device) for a in
                         (idx, wt, x_quad_weights(w), band_rows(h, BAND_ROWS)) + ((self.bins,) if wide else ())]
         self.ytap, self.ywt, self.xu, self.bands = (t.data_ptr() for t in self.tensors[:4])
         self.bins_ptr = self.tensors[4].data_ptr() if wide else self.bins.ctypes.data
@@ -197,7 +198,7 @@ def _forward(cost, dvals, factor):
     out = torch.empty((b, factor * h, factor * w), dtype=cost.dtype, device=cost.device)
     rc = plan.fwd(cost.data_ptr(), out.data_ptr(), b, d, h, w, plan.ytap, plan.ywt, plan.xu, plan.bins_ptr,
                   int(cost.dtype == torch.bfloat16), _build.current_stream(cost.device))
-    fused_softargmin.launches += 1
+    count("launch.K3")
     _build.check_launch(rc, "fused_softargmin")
     return out, plan
 
@@ -210,7 +211,7 @@ def _backward(cost, g, dvals, factor, plan):
     rc = plan.bwd(cost.data_ptr(), g.data_ptr(), dcost.data_ptr(), b, d, h, w, plan.ytap, plan.ywt, plan.xu,
                   plan.bands, BAND_ROWS, plan.bins_ptr, int(cost.dtype == torch.bfloat16),
                   _build.current_stream(cost.device))
-    fused_softargmin_bwd.launches += 1
+    count("launch.K4")
     _build.check_launch(rc, "fused_softargmin_bwd")
     return dcost
 
@@ -243,9 +244,6 @@ def fused_softargmin(cost: torch.Tensor, disp_values, factor: int = 4) -> torch.
     return _FusedSoftargmin.apply(cost, dvals, factor)
 
 
-fused_softargmin.launches = 0
-
-
 def fused_softargmin_bwd(cost: torch.Tensor, g: torch.Tensor, disp_values, factor: int = 4) -> torch.Tensor:
     """The gradient of `fused_softargmin` w.r.t. cost [B, D, h, w] for the
     cotangent g [B, factor*h, factor*w], in the cost's dtype. CPU tensors:
@@ -256,6 +254,3 @@ def fused_softargmin_bwd(cost: torch.Tensor, g: torch.Tensor, disp_values, facto
         raise ValueError(f"fused_softargmin_bwd: g {tuple(g.shape)} must be {(b, factor * h, factor * w)}")
     plan = None if cost.device.type == "cpu" else _cuda_plan("fused_softargmin_bwd", cost, dvals, factor, g=g)
     return _backward(cost, g, dvals, factor, plan)
-
-
-fused_softargmin_bwd.launches = 0

@@ -18,8 +18,9 @@ source note. T2 and T3 add in the data dtype, rounding after each add in
 index order, as the TPU kernels' `acc` does, so kernel and plain version
 agree bit for bit. Each wrapper takes the plain PyTorch version for tensors
 on the CPU and the kernel for CUDA tensors; anything else raises, as does a
-CUDA call at widths the kernel is not built for. `<wrapper>.launches`
-counts kernel launches. No gradients: the TPU kernels have none.
+CUDA call at widths the kernel is not built for. Each launch counts on the
+tracer's `launch.T2`, `launch.T3` or `launch.T4` counter. No gradients: the
+TPU kernels have none.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import ctypes
 import torch
 
 from dualpixelface_tpu_torch.ops.kernels import _build, split_f32
+from dualpixelface_tpu_torch.utils.profiling import count
 
 LANES = 128   # T2: table row width; T3: slab rows
 REPS = 8      # T2: index rows per g; T3: slabs per g
@@ -102,7 +104,7 @@ def lane_gather_sum(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(tab)
     rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), g, rows, int(tab.dtype == torch.bfloat16),
             _build.current_stream(tab.device))
-    lane_gather_sum.launches += 1
+    count("launch.T2")
     _build.check_launch(rc, "lane_gather_sum")
     return out
 
@@ -122,7 +124,7 @@ def transpose_sum(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((x.shape[0], SLAB_C, LANES), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), out.data_ptr(), x.shape[0], int(x.dtype == torch.bfloat16),
             _build.current_stream(x.device))
-    transpose_sum.launches += 1
+    count("launch.T3")
     _build.check_launch(rc, "transpose_sum")
     return out
 
@@ -153,11 +155,6 @@ def batched_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((g, m, n), dtype=torch.float32, device=a.device)
     rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), g, m, k, n, int(a.dtype == torch.bfloat16),
             _build.current_stream(a.device))
-    batched_dot.launches += 1
+    count("launch.T4")
     _build.check_launch(rc, "batched_dot")
     return out
-
-
-lane_gather_sum.launches = 0
-transpose_sum.launches = 0
-batched_dot.launches = 0

@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from dualpixelface_tpu_torch.utils.profiling import to_device
+
 
 @functools.lru_cache(maxsize=128)
 def _linear_matrix(out_size: int, in_size: int, align_corners: bool = True) -> np.ndarray:
@@ -48,13 +50,13 @@ def _nearest_index(out_size: int, in_size: int) -> np.ndarray:
 @functools.lru_cache(maxsize=128)
 @torch.inference_mode(False)  # cached: usable in autograd after serving
 def _device_linear(out_size: int, in_size: int, align_corners: bool, device, dtype) -> torch.Tensor:
-    return torch.as_tensor(_linear_matrix(out_size, in_size, align_corners), dtype=dtype, device=device)
+    return to_device(_linear_matrix(out_size, in_size, align_corners), device, dtype)
 
 
 @functools.lru_cache(maxsize=128)
 @torch.inference_mode(False)  # cached: usable in autograd after serving
 def _device_nearest(out_size: int, in_size: int, device) -> torch.Tensor:
-    return torch.as_tensor(_nearest_index(out_size, in_size), device=device)
+    return to_device(_nearest_index(out_size, in_size), device)
 
 
 def resize_linear(x: torch.Tensor, sizes, axes, align_corners: bool = True) -> torch.Tensor:

@@ -11,8 +11,8 @@ its reference-exact forward (`bench.py`'s `exact` mode: exact attention,
 unbounded deform, unfused regression, so `prob_depth` is returned). It
 prints, as JSON lines:
   * the serving rate (`timed` over --iters request batches);
-  * each stage's device time (CUDA events around the model's top-level
-    modules; the regression is the span between aggregation and the ANM);
+  * the device time of each stage and of the ASM's parts in one call: the
+    program's tracer spans `model.*` and `asm.*` (`utils/profiling`);
   * the device's busy time and idle share, and the top kernels by device
     time (per forward), from torch.profiler over two forwards.
 Requires a GPU; it does not run on the CPU.
@@ -31,10 +31,10 @@ import torch
 from dualpixelface_tpu_torch.config import load_config
 from dualpixelface_tpu_torch.serve import Predictor, bench_batch, seeded_state_dict
 from dualpixelface_tpu_torch.tools import device_busy_us
+from dualpixelface_tpu_torch.utils import profiling
 
 B, H, W = 4, 768, 576
 MODELS = ("stereodpnet_plus", "stereodpnet")
-STAGES = ("feature_extraction", "cost_volume", "aggregation", "normal_estimator")
 
 
 def _card() -> str:
@@ -68,35 +68,18 @@ def timed(run, batches: list, check=None) -> dict:
             "latency_s": {"median": statistics.median(lat), "min": min(lat), "max": max(lat)}}
 
 
-def stage_times(model, run) -> dict:
-    """Device ms of each top-level stage of `model` during one `run()` that
-    calls its forward once."""
-    events = {}
-
-    def pre(name):
-        def hook(*_):
-            events[name] = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
-            events[name][0].record()
-        return hook
-
-    def post(name):
-        def hook(*_):
-            events[name][1].record()
-        return hook
-
-    handles = []
-    for name in STAGES:
-        mod = getattr(model, name)
-        handles += [mod.register_forward_pre_hook(pre(name)), mod.register_forward_hook(post(name))]
+def traced_ms(run, prefixes=("model.", "asm.")) -> dict:
+    """Device ms of each tracer span (`utils/profiling`) whose name starts
+    with one of `prefixes`, summed over one `run()`, the card synchronised
+    after it. The tracer is on for that call alone."""
+    profiling.enable()
     try:
         run()
         torch.cuda.synchronize()
+        spans = profiling.snapshot()["spans"]
     finally:
-        for h in handles:
-            h.remove()
-    out = {name: events[name][0].elapsed_time(events[name][1]) for name in STAGES}
-    out["regression"] = events["aggregation"][1].elapsed_time(events["normal_estimator"][0])
-    return out
+        profiling.disable()
+    return {name: s["device_ms"] for name, s in spans.items() if name.startswith(prefixes)}
 
 
 def device_profile(run, reps: int, top: int, groups: dict[str, str] | None = None) -> list[dict]:
@@ -161,7 +144,7 @@ def main() -> int:
     rate = timed(pred, [batch] * args.iters)
     print(json.dumps({"serving": rate, "model": args.model, "card": _card(), "batch": B, "hw": [H, W],
                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
-    print(json.dumps({"stage_ms": stage_times(pred.model, lambda: pred(batch))}), flush=True)
+    print(json.dumps({"stage_ms": traced_ms(lambda: pred(batch))}), flush=True)
 
     for line in device_profile(lambda: pred(batch), reps=2, top=args.top):
         print(json.dumps(line), flush=True)

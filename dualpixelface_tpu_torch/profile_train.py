@@ -19,10 +19,10 @@ kernel group (`KERNEL_GROUPS`).
 It prints, as JSON lines:
   * the train rate (`profile_serving.timed` over --iters steps) and the
     peak device memory of a step;
-  * each phase's device time in one step: the forward's top-level stages
-    (CUDA events around the model's modules; the regression is the span
-    between aggregation and the ANM), the losses, the backward and the
-    optimizer update;
+  * each phase's device time in one step: the program's tracer spans
+    (`utils/profiling`) `train.*` (the batch's copy, the forward, the
+    losses, the backward, the optimizer update) and the forward's stages
+    `model.*`;
   * the device's busy time and idle share, and the top kernels by device
     time (per step), from torch.profiler over two steps.
 Requires a GPU; it does not run on the CPU.
@@ -38,7 +38,7 @@ import torch
 from dualpixelface_tpu_torch.config import Configuration, load_config
 from dualpixelface_tpu_torch.losses import loss_selector
 from dualpixelface_tpu_torch.ops.precision import exact_f32, resolve_policy
-from dualpixelface_tpu_torch.profile_serving import _card, device_profile, stage_times, timed
+from dualpixelface_tpu_torch.profile_serving import _card, device_profile, timed, traced_ms
 from dualpixelface_tpu_torch.serve import seeded_state_dict
 from dualpixelface_tpu_torch.train.state import create_train_state
 from dualpixelface_tpu_torch.train.steps import make_train_step
@@ -165,22 +165,6 @@ def multiview_keys(rng, b: int, h: int, w: int, n: int = 3, depth: float = 1000.
             "P": np.tile(np.eye(4, dtype=np.float32), (b, 1, 1)), "Ks": ks, "Ps": ps}
 
 
-def phase_times(step, state, batch) -> dict:
-    """Device ms of one step's phases: the forward's stages, then the
-    losses, the backward and the update (CUDA events at the step's marks)."""
-    events = {}
-
-    def mark(name):
-        events[name] = torch.cuda.Event(enable_timing=True)
-        events[name].record()
-
-    out = stage_times(state.model, lambda: step(state, batch, mark=mark))
-    out["forward"] = events["forward"].elapsed_time(events["loss"])
-    for a, b in (("loss", "backward"), ("backward", "update"), ("update", "end")):
-        out[a] = events[a].elapsed_time(events[b])
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cell", choices=(*CELLS, "trainer"), default="stereodpnet_plus")
@@ -205,7 +189,7 @@ def main() -> int:
     print(json.dumps({"train": rate, "cell": args.cell, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                       "card": _card(), "batch": config.batch_size, "hw": [H, W],
                       "dtype": str(dtype).removeprefix("torch.")}), flush=True)
-    print(json.dumps({"phase_ms": phase_times(step, state, batch)}), flush=True)
+    print(json.dumps({"phase_ms": traced_ms(lambda: step(state, batch), ("train.", "model."))}), flush=True)
     groups = KERNEL_GROUPS if args.cell == "trainer" else None
     for line in device_profile(lambda: step(state, batch), reps=2, top=args.top, groups=groups):
         print(json.dumps(line), flush=True)

@@ -6,7 +6,8 @@
 
 Weights and floating inputs are cast to the serving dtype, as the JAX
 serving path casts its variables and batch. The forward runs in eval mode
-under `torch.inference_mode()`.
+under `torch.inference_mode()`. Tracer spans (`utils/profiling`):
+`serve.call` around a call, `serve.h2d` around the request's cast and copy.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 from dualpixelface_tpu_torch import resolve_device
 from dualpixelface_tpu_torch.models import build_model
 from dualpixelface_tpu_torch.ops.precision import exact_f32
+from dualpixelface_tpu_torch.utils.profiling import span, to_device
 from dualpixelface_tpu_torch.weights import load_state_dict
 
 
@@ -37,12 +39,13 @@ class Predictor:
         self.model = model.to(device=self.device, dtype=dtype).eval()
 
     def _cast(self, v):
-        t = torch.as_tensor(v).to(self.device)
+        t = to_device(v, self.device)
         return t.to(self.dtype) if t.is_floating_point() else t
 
     def __call__(self, batch: dict) -> dict:
-        with torch.inference_mode():
-            inputs = {k: self._cast(v) for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+        with span("serve.call"), torch.inference_mode():
+            with span("serve.h2d"):
+                inputs = {k: self._cast(v) for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
             return self.model(inputs)
 
 

@@ -32,11 +32,12 @@ from torch.func import functional_call
 
 from dualpixelface_tpu_torch import parallel
 from dualpixelface_tpu_torch.ops.precision import cast_floating
+from dualpixelface_tpu_torch.utils.profiling import span, to_device
 
 
 def batch_to(batch: dict, device) -> dict:
     """The array entries of `batch` (numpy or tensors) as tensors on `device`."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+    return {k: to_device(v, device) for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
 
 
 def make_train_step(model, loss_bank, compute_dtype=torch.float32):
@@ -44,32 +45,41 @@ def make_train_step(model, loss_bank, compute_dtype=torch.float32):
     in train mode, the losses, the backward and the optimizer update of
     `state` (whose model is `model`). `mark(name)`, when given, is called at
     each phase boundary ("forward", "loss", "backward", "update", "end") for
-    a profiler to time the phases."""
+    a profiler to time the phases. The tracer's spans (`utils/profiling`)
+    are `train.step` around the step and, inside it, `train.h2d` (the
+    batch's copy), `train.forward`, `train.loss`, `train.backward` and
+    `train.update`."""
     bf16 = compute_dtype == torch.bfloat16
 
     def train_step(state, batch, mark=None):
         mark = mark or (lambda name: None)
-        dev = next(model.parameters()).device
-        batch = batch_to(batch, dev)
-        model.train()
-        mark("forward")
-        if bf16:
-            params = cast_floating(dict(model.named_parameters()), compute_dtype)
-            results = cast_floating(functional_call(model, params, (cast_floating(batch, compute_dtype),),
-                                                    tie_weights=False), torch.float32)
-        else:
-            results = model(batch)
-        mark("loss")
-        losses = loss_bank(results, batch)
-        mark("backward")
-        state.optimizer.zero_grad(set_to_none=True)
-        losses["final_loss"].backward()
-        parallel.all_reduce_grads(model.parameters(), parallel.world())
-        mark("update")
-        state.apply_gradients()
-        mark("end")
-        names = [k for k in losses if k.endswith("loss")]
-        reported = parallel.global_mean(torch.stack([losses[k].detach() for k in names]))
+        with span("train.step"):
+            dev = next(model.parameters()).device
+            with span("train.h2d"):
+                batch = batch_to(batch, dev)
+            model.train()
+            mark("forward")
+            with span("train.forward"):
+                if bf16:
+                    params = cast_floating(dict(model.named_parameters()), compute_dtype)
+                    results = cast_floating(functional_call(model, params, (cast_floating(batch, compute_dtype),),
+                                                            tie_weights=False), torch.float32)
+                else:
+                    results = model(batch)
+            mark("loss")
+            with span("train.loss"):
+                losses = loss_bank(results, batch)
+            mark("backward")
+            with span("train.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                losses["final_loss"].backward()
+                parallel.all_reduce_grads(model.parameters(), parallel.world())
+            mark("update")
+            with span("train.update"):
+                state.apply_gradients()
+            mark("end")
+            names = [k for k in losses if k.endswith("loss")]
+            reported = parallel.global_mean(torch.stack([losses[k].detach() for k in names]))
         return state, dict(zip(names, reported.unbind()))
 
     return train_step

@@ -20,6 +20,8 @@ the device without a host sync; the train steps' losses
 stay on the device and are fetched once per epoch. Each epoch saves
 `checkpoint_<epoch>.pt` (all kept); `auto_resume` continues after the
 newest one; `validate_every` (default 1) runs `test()` between epochs.
+`fit` opens the tracer spans (`utils/profiling`) `fit.data`, the wait for
+the pipeline's next batch, and `fit.step`, the step on it.
 Records go to stdout, to `output/metrics.jsonl` and, where `tensorboardX`
 imports, to TensorBoard in the log directory.
 """
@@ -42,6 +44,7 @@ from dualpixelface_tpu_torch.train.checkpoint import checkpoint_epoch, restore_c
 from dualpixelface_tpu_torch.train.state import create_train_state
 from dualpixelface_tpu_torch.train.steps import make_eval_step, make_train_step
 from dualpixelface_tpu_torch.utils import tensor2numpy
+from dualpixelface_tpu_torch.utils.profiling import span, to_device
 
 
 class Trainer:
@@ -91,7 +94,7 @@ class Trainer:
         return self._pipes[training]
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: v.to(self.device, non_blocking=True) for k, v in batch.items() if torch.is_tensor(v)}
+        return {k: to_device(v, self.device, non_blocking=True) for k, v in batch.items() if torch.is_tensor(v)}
 
     def init_state(self, steps_per_epoch: int):
         """A fresh train state (the seeded init or `state_dict`), its steps,
@@ -160,10 +163,16 @@ class Trainer:
             step_losses: list[dict] = []
             # no per-step host sync: the losses stay on the device and are
             # fetched once per epoch
-            for batch in pipe:
-                batch = numeric_batch(batch)
-                batch.pop("_valid", None)
-                self.state, losses = self.train_step(self.state, self._to_device(batch))
+            batches = iter(pipe)
+            while True:
+                with span("fit.data"):  # the wait for the pipeline's next batch
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                with span("fit.step"):
+                    batch = numeric_batch(batch)
+                    batch.pop("_valid", None)
+                    self.state, losses = self.train_step(self.state, self._to_device(batch))
                 step_losses.append(losses)
             n = len(step_losses)
             running: dict = {}

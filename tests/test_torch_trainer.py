@@ -330,8 +330,9 @@ def _cli(tmp_path, *args):
 
 def test_cli_trains_and_tests_on_the_cpu(tmp_path):
     """The CLI with --device cpu and --profile on a tiny run config: rc 0,
-    a train and a test record, the epoch's checkpoint and the profiler's
-    trace, all under the workspace."""
+    a train and a test record, the epoch's checkpoint, the profiler's trace
+    holding the program's spans and the tracer's counters, all under the
+    workspace."""
     config = _tiny_run_config(tmp_path)
     out = _cli(tmp_path, "--config", str(config), "--workspace", "cli", "--device", "cpu", "--profile")
     assert out.returncode == 0, out.stderr[-3000:]
@@ -341,8 +342,12 @@ def test_cli_trains_and_tests_on_the_cpu(tmp_path):
     assert np.isfinite(records[0]["final_loss"]) and records[0]["steps"] == 1.0
     assert sorted(p.name for p in (ws / "checkpoints").iterdir()) == ["checkpoint_00.pt"]
     assert '"mode": "test"' in out.stdout and (ws / "output" / "log_text.txt").is_file()
-    # --profile: the run's torch.profiler trace in the log directory
-    assert [p.name.endswith(".pt.trace.json") for p in (ws / "log").iterdir() if "tfevents" not in p.name] == [True]
+    # --profile: the run's torch.profiler trace and the tracer's file in the log directory
+    logs = [p for p in (ws / "log").iterdir() if "tfevents" not in p.name and p.name != "tracer.json"]
+    assert [p.name.endswith(".pt.trace.json") for p in logs] == [True]
+    assert '"name": "train.step"' in logs[0].read_text()  # the program's spans as ranges
+    tracer = json.loads((ws / "log" / "tracer.json").read_text())
+    assert tracer["counters"]["h2d.copies"] > 0 and tracer["spans"]["fit.step"]["untimed"] == 1
 
 
 def test_timeit_is_the_mean_seconds_per_call():
