@@ -72,6 +72,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      `prob_depth` [4, 1, 32, 768, 576], finiteness, launch counts (K1 +2,
      K5 +2, K3 +0 per forward: the regression is the plain soft-argmin, as
      in JAX), the peak memory and a smoke reading of pairs/s;
+  5c. both serving configurations at 768x576, batch 4 (`stereodpnet_plus`
+     in bf16, `stereodpnet` in f32, as the benchmark serves them), the
+     front stages (feature tower, ASM, aggregation) replayed from CUDA
+     graphs (`utils/graphs`), against the eager forward of the same
+     weights: answers bit for bit (or within REL_TOL, each difference
+     named), answers kept unchanged by later calls and sharing no graph
+     buffer, `serve.graph_replays` +3 a call from the third call on,
+     launches per forward K1 2, K3 1 (0 unfused), K5 2;
   6. the same weights at 192x192, batch 1, f32: the card's forward (kernels)
      against the CPU forward (plain versions);
   6b. the same for `stereodpnet`, with phase 6's tolerances;
@@ -1024,6 +1032,73 @@ def serve_full_width(torch, config, sd, card, per_forward, label="serving"):
     del pred
     torch.cuda.empty_cache()
     return launches
+
+
+def serve_graphs_check(torch, config, sd, card, per_forward):
+    """Phase 5c: `config`'s serving forward at 768x576, batch 4 (bf16 for
+    `stereodpnet_plus`, f32 for `stereodpnet`, as the benchmark serves them),
+    its front stages replayed from CUDA graphs, against the same weights'
+    eager forward (the Predictor's graphs closed). Six calls on four request
+    batches: the first eager, the second captures, each later one replays.
+    Every answer equals the eager one bit for bit (a replay runs the eager
+    kernels); an output that differs is held to REL_TOL and named beside
+    the difference between two eager runs of the same batch (the exact-f32
+    forward is not bitwise reproducible run to run); an
+    answer kept from one call is unchanged after every later call and
+    shares no storage with a graph's buffer; `serve.graph_replays` grows by
+    the model's number of `graph_stages` a call from the third call on; the
+    launches per forward are `per_forward`."""
+    from torch.utils._pytree import tree_flatten
+
+    from dualpixelface_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dualpixelface_tpu_torch.serve import Predictor, bench_batch
+    from dualpixelface_tpu_torch.utils import profiling
+
+    dtype = torch.bfloat16 if config.model.get("fused_regression", False) else torch.float32
+    dname = str(dtype).split(".")[-1]
+    pred = Predictor(config, state_dict=sd, device="cuda", dtype=dtype)
+    eager = Predictor(config, state_dict=sd, device="cuda", dtype=dtype)
+    if pred.graphs is None:
+        fail(f"phase 5c: {config.model_name} on the card has no graphs")
+    eager.graphs.close()
+    batches = [bench_batch(B, H, W, seed=s) for s in range(4)]
+    kept, notes, replays = [], [], []
+    for i, batch in enumerate(batches + batches[:2]):
+        before = profiling.counters().get("serve.graph_replays", 0)
+        reset_launch_counts()
+        got = pred(batch)
+        torch.cuda.synchronize()
+        replays.append(profiling.counters().get("serve.graph_replays", 0) - before)
+        launches = {k: n for k, n in launch_counts().items() if n}
+        if launches != {k: n for k, n in per_forward.items() if n}:
+            fail(f"phase 5c: {config.model_name} call {i}: launches {launches} != {per_forward}")
+        want, again = eager(batch), eager(batch)
+        for key, v in want.items():
+            if v is None or torch.equal(got[key], v):
+                continue
+            err = float((got[key].float() - v.float()).abs().max())
+            noise = float((again[key].float() - v.float()).abs().max())
+            tol = REL_TOL[dname] * max(1.0, float(v.float().abs().max()))
+            notes.append(f"call {i} {key}: max |graphed - eager| {err:.3e}, two eager runs {noise:.3e} (tol {tol:.3e})")
+            if not err <= tol:
+                fail(f"phase 5c: {config.model_name} {notes[-1]}")
+        kept.append((got, {k: None if v is None else v.clone() for k, v in got.items()}))
+    if replays[2:] != [len(pred.model.graph_stages)] * (len(replays) - 2):
+        fail(f"phase 5c: {config.model_name} serve.graph_replays per call {replays}")
+    static = {t.untyped_storage().data_ptr() for e in pred.graphs.captured.values()
+              for t in [*e.inputs, *tree_flatten(e.outputs)[0]]}
+    for i, (got, clone) in enumerate(kept):
+        for key, v in got.items():
+            if v is not None and (not torch.equal(v, clone[key]) or v.untyped_storage().data_ptr() in static):
+                fail(f"phase 5c: {config.model_name} call {i}'s {key} changed after a later call or aliases a graph buffer")
+    line = {"serve_graphs": {"model": config.model_name, "dtype": dname, "batch": B, "hw": [H, W],
+                             "calls": len(replays), "replays_per_call": replays,
+                             "captured": len(pred.graphs.captured), "bitwise": not notes, "notes": notes,
+                             "launches_per_forward": per_forward, "card": card}}
+    print(json.dumps(line), flush=True)
+    del pred, eager
+    torch.cuda.empty_cache()
+    return line
 
 
 def check_against_cpu(torch, config, sd):
@@ -2902,6 +2977,8 @@ def main() -> int:
     serving = phase("5", serve_full_width, torch, config, sd, card, {"K1": 2, "K3": 1, "K5": 2})
     serving_exact = phase("5b", serve_full_width, torch, exact, sd, card, {"K1": 2, "K3": 0, "K5": 2},
                           "serving_exact")
+    phase("5c", serve_graphs_check, torch, config, sd, card, {"K1": 2, "K3": 1, "K5": 2})
+    phase("5c exact", serve_graphs_check, torch, exact, sd, card, {"K1": 2, "K3": 0, "K5": 2})
     phase("6", check_against_cpu, torch, config, sd)
     phase("6b", check_against_cpu, torch, exact, sd)
     launches = phase("7", train_full_width, torch, sd, card)

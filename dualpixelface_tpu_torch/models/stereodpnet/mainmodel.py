@@ -16,6 +16,9 @@ pred_normal [B, 1, H, W, 3]; ref_feature [B, H/4, W/4]; with
 Each stage runs inside a tracer span (`utils/profiling`):
 `model.feature_extraction`, `model.cost_volume`, `model.aggregation`,
 `model.regression` (the heads' soft-argmin) and `model.normal_estimator`.
+`graph_stages` names the stages a serving `Predictor` replays from CUDA
+graphs on the card (`utils/graphs`); the outputs are computed eagerly from
+theirs, so none holds a graph's buffer.
 """
 from __future__ import annotations
 
@@ -44,6 +47,16 @@ class STEREODPNET(nn.Module):
         self.cost_volume = ASMCostVolume(option, opt.mindisp, opt.maxdisp)
         self.aggregation = PSMNetHGAggregation(opt.inplanes, upsample=not self.fused)
         self.normal_estimator = ANM(option, opt.mindisp, opt.maxdisp) if opt.predict_normal else None
+
+    @property
+    def graph_stages(self) -> tuple:
+        """The front stages, which copy nothing from the host per call. The
+        regression and the ANM stay eager: they hold the hand-written
+        kernels' launches (K3, K1, K5). Under `compat_nearest` the ASM
+        copies its sampling index per call, so it stays eager too."""
+        if self.cost_volume.modes["compat_nearest"]:
+            return ("feature_extraction", "aggregation")
+        return ("feature_extraction", "cost_volume", "aggregation")
 
     def forward(self, batch: dict) -> dict:
         ref_img, tar_img = select_ref_target(batch, self.option)

@@ -11,8 +11,9 @@ its reference-exact forward (`bench.py`'s `exact` mode: exact attention,
 unbounded deform, unfused regression, so `prob_depth` is returned). It
 prints, as JSON lines:
   * the serving rate (`timed` over --iters request batches);
-  * the device time of each stage and of the ASM's parts in one call: the
-    program's tracer spans `model.*` and `asm.*` (`utils/profiling`);
+  * the device time of each stage in one call: the program's tracer
+    spans `model.*` (`utils/profiling`); the ASM's parts (`asm.*`) run
+    inside its CUDA graph's replay and are not timed;
   * the device's busy time and idle share, and the top kernels by device
     time (per forward), from torch.profiler over two forwards.
 Requires a GPU; it does not run on the CPU.

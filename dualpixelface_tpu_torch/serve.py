@@ -6,8 +6,12 @@
 
 Weights and floating inputs are cast to the serving dtype, as the JAX
 serving path casts its variables and batch. The forward runs in eval mode
-under `torch.inference_mode()`. Tracer spans (`utils/profiling`):
-`serve.call` around a call, `serve.h2d` around the request's cast and copy.
+under `torch.inference_mode()`. On the card, the stages the model
+declares in `graph_stages` replay from CUDA graphs (`utils/graphs`; the
+first call of a shape runs eagerly, the second captures); a model that
+declares none, and every CPU predictor, runs eagerly. Tracer spans
+(`utils/profiling`): `serve.call` around a call, `serve.h2d` around the
+request's cast and copy.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 from dualpixelface_tpu_torch import resolve_device
 from dualpixelface_tpu_torch.models import build_model
 from dualpixelface_tpu_torch.ops.precision import exact_f32
+from dualpixelface_tpu_torch.utils.graphs import StageGraphs
 from dualpixelface_tpu_torch.utils.profiling import span, to_device
 from dualpixelface_tpu_torch.weights import load_state_dict
 
@@ -37,6 +42,8 @@ class Predictor:
         if state_dict is not None:
             load_state_dict(model, state_dict)
         self.model = model.to(device=self.device, dtype=dtype).eval()
+        stages = getattr(model, "graph_stages", ())
+        self.graphs = StageGraphs(self.model, stages) if stages and self.device.type == "cuda" else None
 
     def _cast(self, v):
         t = to_device(v, self.device)

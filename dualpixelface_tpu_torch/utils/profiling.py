@@ -19,7 +19,7 @@ The tracer times the program's layers from inside:
   parent span, its call (the sequence number of the outermost span open,
   `serve.call` or `train.step`, shared by every span inside it), its start
   and end on the host clock and, while CUDA is initialised, a pair of CUDA
-  events. Device times are read without a synchronise: at each outermost
+  events (none while the current stream captures a CUDA graph). Device times are read without a synchronise: at each outermost
   span's start, the calls the card has finished are read with `query()`
   and their events reused. While a `torch.profiler` session records, spans
   are not timed (the profiler's cost stays out of the statistics); with
@@ -28,7 +28,8 @@ The tracer times the program's layers from inside:
   kernels they launched. Spans are opened from one thread.
 * `count(name, n)` counters are always on: `h2d.copies`, `h2d.bytes` and
   `h2d.pageable_bytes` (`to_device`), `launch.K1` ... `launch.T4` (the
-  kernel wrappers), `kernels.build` and `kernels.load` (`ops/kernels/_build`).
+  kernel wrappers), `kernels.build` and `kernels.load` (`ops/kernels/_build`),
+  `serve.graph_captures` and `serve.graph_replays` (`utils/graphs`).
 * `snapshot()` sums both since `enable()`: {"spans": {name: {calls,
   untimed, host_ms, self_host_ms, device_ms}}, "counters": {...}}, where
   `calls` are the timed entries, `untimed` those made while a profiler
@@ -85,6 +86,13 @@ def _device_stream():
     return torch.cuda.current_stream() if torch.cuda.is_initialized() else None
 
 
+def _capturing() -> bool:
+    """Whether the current stream is capturing a CUDA graph: a span opened
+    then records no CUDA event (a capture may not hold one on another
+    stream, and a replay would not repeat it)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
 def _device_event():
     return torch.cuda.Event(enable_timing=True)
 
@@ -112,7 +120,7 @@ class _Span:
             tr.stream = _device_stream()
             tr.call_events = []
         tr.stack.append(self)
-        if tr.stream is not None:
+        if tr.stream is not None and not _capturing():
             self.events = (tr.event(), tr.event())
             self.events[0].record(tr.stream)
         rec[3] = time.perf_counter_ns()
