@@ -1,0 +1,9 @@
+"""Device ms a request batch of NNet's integer-shift concat volume: the
+program's `model.cost_volume` span (`models/nnet/mainmodel.NNET.forward`),
+its CUDA events over the window's calls of `serve.call`
+(`benchmark/program_spans.py`)."""
+from benchmark.program_spans import device_ms_per_call
+
+
+def read(r):
+    return device_ms_per_call("model.cost_volume")

@@ -16,6 +16,13 @@ batch["abvalue"] [B, 2]. Outputs, in train and in eval mode: pred_depth
 [B, 2, H, W] (the classifier's, then the refined); prob_depth
 [B, 2, 4 * level, H, W]; pred_normal [B, 1, H, W, 3] or None;
 ref_feature [B, H/4, W/4]. Modules are named after the JAX variable tree.
+Each stage runs inside a tracer span (`utils/profiling`):
+`model.feature_extraction` (both views), `model.cost_volume`,
+`model.aggregation` (dres0-4 and the classifier), `model.refinement` (the
+per-plane context stack), `model.regression` (both heads' resize and
+soft-argmin) and `model.normal_estimator`. NNet declares no `graph_stages`:
+its tower runs once per view, and a graph's static outputs would be
+overwritten by the second call.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from dualpixelface_tpu_torch.models.stereodpnet.normal_module import _device_pla
 from dualpixelface_tpu_torch.ops import cost_volume as cv
 from dualpixelface_tpu_torch.ops.blocks import ConvBN3D, LeakyReLU
 from dualpixelface_tpu_torch.ops.resize import resize_linear
+from dualpixelface_tpu_torch.utils.profiling import span
 
 LEAKY = LeakyReLU(0.1)
 
@@ -101,32 +109,40 @@ class NNET(nn.Module):
 
     def forward(self, batch: dict) -> dict:
         ref_img, tar_img = select_ref_target(batch, self.option)
-        ref_fea = self.feature_extraction(torch.movedim(ref_img, -1, 1))  # [B, C, h, w]
-        tar_fea = self.feature_extraction(torch.movedim(tar_img, -1, 1))
-        cost = cv.concat_volume_int(ref_fea, tar_fea, self.costrange)  # [B, 2C, D, h, w]
+        with span("model.feature_extraction"):
+            ref_fea = self.feature_extraction(torch.movedim(ref_img, -1, 1))  # [B, C, h, w]
+            tar_fea = self.feature_extraction(torch.movedim(tar_img, -1, 1))
+        with span("model.cost_volume"):
+            cost = cv.concat_volume_int(ref_fea, tar_fea, self.costrange)  # [B, 2C, D, h, w]
 
-        cost0 = torch.relu(self.dres0_1(torch.relu(self.dres0_0(cost))))
-        cost_in0 = cost0
-        for i in (1, 2, 3, 4):
-            cost0 = getattr(self, f"dres{i}_1")(torch.relu(getattr(self, f"dres{i}_0")(cost0))) + cost0
-        costs = self.classify_1(torch.relu(self.classify_0(cost0)))[:, 0]  # [B, D, h, w]
+        with span("model.aggregation"):
+            cost0 = torch.relu(self.dres0_1(torch.relu(self.dres0_0(cost))))
+            cost_in0 = cost0
+            for i in (1, 2, 3, 4):
+                cost0 = getattr(self, f"dres{i}_1")(torch.relu(getattr(self, f"dres{i}_0")(cost0))) + cost0
+            costs = self.classify_1(torch.relu(self.classify_0(cost0)))[:, 0]  # [B, D, h, w]
 
         # the per-plane 2-D refinement, the planes folded into the batch
-        b, d, h, w = costs.shape
-        ref_tiled = ref_fea[:, None].expand(b, d, *ref_fea.shape[1:])
-        slices_in = torch.cat([ref_tiled, costs[:, :, None]], dim=2).reshape(b * d, -1, h, w)
-        costss = self.convs(slices_in).reshape(b, d, h, w) + costs
+        with span("model.refinement"):
+            b, d, h, w = costs.shape
+            ref_tiled = ref_fea[:, None].expand(b, d, *ref_fea.shape[1:])
+            slices_in = torch.cat([ref_tiled, costs[:, :, None]], dim=2).reshape(b * d, -1, h, w)
+            costss = self.convs(slices_in).reshape(b, d, h, w) + costs
 
         disps, probs = [], []
-        for logits in (costs, costss):
-            up = resize_linear(logits, (4 * d, 4 * h, 4 * w), (1, 2, 3), align_corners=False)
-            disp, prob = cv.soft_argmin(up, self.disparities)
-            disps.append(disp)
-            probs.append(prob)
+        with span("model.regression"):
+            # the bins copied to the device once: a per-call pageable copy drains the stream
+            bins = _device_planes(tuple(np.asarray(self.disparities, np.float32).tolist()), costs.device)
+            for logits in (costs, costss):
+                up = resize_linear(logits, (4 * d, 4 * h, 4 * w), (1, 2, 3), align_corners=False)
+                disp, prob = cv.soft_argmin(up, bins)
+                disps.append(disp)
+                probs.append(prob)
 
         normal = None
         if self.normal_module is not None:
-            normal = self.normal_module(torch.cat([cost_in0, cost0], dim=1), batch)[:, None]
+            with span("model.normal_estimator"):
+                normal = self.normal_module(torch.cat([cost_in0, cost0], dim=1), batch)[:, None]
         return {
             "pred_depth": torch.stack(disps, dim=1),
             "prob_depth": torch.stack(probs, dim=1),

@@ -85,10 +85,14 @@ def gwc_volume(ref: torch.Tensor, tar: torch.Tensor, disps: Sequence[float], num
 
 def soft_argmin(cost: torch.Tensor, disparities) -> tuple[torch.Tensor, torch.Tensor]:
     """cost [B, D, H, W] logits -> (disparity [B, H, W], probability
-    [B, D, H, W]), computed in f32 and cast back to the cost dtype."""
+    [B, D, H, W]), computed in f32 and cast back to the cost dtype.
+    `disparities`: the D bin values, as host data (copied to the device on
+    each call) or as an f32 tensor on cost's device."""
     c32 = cost.float()
     prob = torch.exp(c32 - torch.amax(cost, dim=1, keepdim=True).float())
     prob = prob / prob.sum(dim=1, keepdim=True)
-    dvec = to_device(np.asarray(disparities, np.float32), cost.device).reshape(1, -1, 1, 1)
+    if not torch.is_tensor(disparities):
+        disparities = to_device(np.asarray(disparities, np.float32), cost.device)
+    dvec = disparities.reshape(1, -1, 1, 1)
     disp = (prob * dvec).sum(dim=1)
     return disp.to(cost.dtype), prob.to(cost.dtype)
